@@ -41,7 +41,6 @@ DOC_PAGES = [
     ("parity", join(ROOT, "docs", "parity.md"), "Reference parity"),
     ("performance", join(ROOT, "docs", "performance.md"), "Performance"),
     ("gallery", join(ROOT, "docs", "gallery.md"), "Gallery"),
-    ("roadmap", join(ROOT, "docs", "roadmap.md"), "Roadmap"),
 ]
 
 API_MODULES = [
@@ -60,7 +59,6 @@ API_MODULES = [
     "springcraft_tpu.ops.rigid",
     "springcraft_tpu.ops.spectrum",
     "springcraft_tpu.ops.matfree",
-    "springcraft_tpu.ops.pallas_kernels",
     "springcraft_tpu.ops.pallas_linalg",
     "springcraft_tpu.parallel.pipeline",
     "springcraft_tpu.parallel.sharded",
@@ -148,7 +146,7 @@ def page(slug, title, body):
 <body><div class="layout">
 <nav>{nav_html(slug)}</nav>
 <main>{body}
-<footer>springcraft_tpu — TPU-native elastic-network-model framework
+<footer>springcraft_tpu — elastic-network-model framework
 (JAX / XLA / Pallas).  Generated by <code>docs/make_site.py</code>.
 </footer></main>
 </div></body></html>"""

@@ -4,7 +4,7 @@ Basic NMA of a protein elastic network model
 
 Normal mode analysis of a coarse-grained CA elastic network, using the
 eANM tabulated force field: eigenvalues, frequencies and mean-square
-fluctuations (the TPU-native counterpart of the reference gallery script
+fluctuations (the device counterpart of the reference gallery script
 ``doc/examples/scripts/basic_nma.py``).
 
 Run:  python examples/basic_nma.py [path/to/structure.pdb]

@@ -1,14 +1,14 @@
 """
-Ensemble NMA on TPU
-===================
+Ensemble NMA on the accelerator
+===============================
 
 Batched NMA over many conformers of one protein (e.g. MD snapshots),
 executed as a single fused vmap pipeline — each conformer gets a
 complete ANM solve (Hessian, eigensolve, observables) and the batch
 is dispatched to the accelerator in one XLA program.
 
-On a multi-chip system, pass a mesh (springcraft_tpu.parallel.make_mesh)
-to sharded_ensemble_anm instead to spread conformers across chips.
+On a multi-device system, pass a mesh (springcraft_tpu.parallel.make_mesh)
+to sharded_ensemble_anm instead to spread conformers across devices.
 
 Run:  python examples/ensemble_nma.py
 """
@@ -46,9 +46,9 @@ print("mean MSF profile:", np.round(np.asarray(out["msf"]).mean(0)[:5], 3))
 
 # Fast covariance-only pipeline (regularized Cholesky, no eigensolve):
 # an order of magnitude faster when only fluctuation observables are
-# needed.  On TPU this routes the whole batch through the blocked
-# Pallas panel-Cholesky inverse (inverse="auto"); pass
-# inverse="cho_solve" to force the per-conformer XLA formulation.
+# needed.  inverse="auto" takes the covariance engine the route policy
+# picks (springcraft_tpu.utils.config.ensemble_inverse); pass
+# inverse="blocked" or "cho_solve" to choose one.
 fluc = ensemble_anm_fluctuations(conformers, params, with_dcc=True)
 print("fast-path MSF matches:",
       bool(np.allclose(fluc["msf"], out["msf"], rtol=5e-3, atol=1e-4)))

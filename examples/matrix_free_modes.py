@@ -3,21 +3,25 @@ Matrix-free modes beyond device memory
 ======================================
 
 For very large assemblies the ``(3n, 3n)`` Hessian no longer fits one
-chip (20k residues -> 14.4 GB f32, 100k -> 360 GB) — and the reference's
+device (100k residues -> 360 GB f32) — and the reference's
 dense ``eigh`` path (reference ``nma.py:61``) was never an option.  The
 matrix-free pipeline keeps the operator implicit:
 
-1. atoms are Morton-sorted so 256-atom tiles are spatially compact;
-2. tile-level AABB neighbor lists prune the pair plane (the TPU-native
+1. atoms are Morton-sorted so 16-atom tiles are spatially compact;
+2. tile-level AABB neighbor lists prune the pair plane (a tile-level
    cell list — O(n * neighbors) per product, not O(n^2));
-3. a scalar-prefetch Pallas kernel computes ``H @ X`` tile-by-tile in
-   VMEM (the Hessian never exists, even tiled, in HBM);
+3. a Pallas kernel (Triton route, CUDA GPUs) computes ``H @ X`` with
+   one program per row tile walking its neighbour tiles; the Hessian
+   never exists, even tiled, in device memory;
 4. Chebyshev-filtered subspace iteration extracts the lowest modes,
    with the rigid-body null space shifted into the damped band and a
    Gershgorin degree bound as the guaranteed spectral edge.
 
-Always check the returned residuals — iterative mode solvers are only
-as good as their convergence.
+Below ``utils.config.SPARSE_APPLY_MIN_ATOMS`` atoms (and in float64)
+the solver uses the dense-grid XLA operator instead, on any device; on
+a device without CUDA, pass ``sparse=False`` beyond that size.  Always
+check the returned residuals — iterative mode solvers are only as good
+as their convergence.
 
 Run:  python examples/matrix_free_modes.py [n_residues]
 """
@@ -29,7 +33,6 @@ sys.path.insert(0, dirname(dirname(abspath(__file__))))  # in-repo run
 
 import time
 
-import jax
 import numpy as np
 
 from springcraft_tpu.ops import ffparams, matfree
@@ -47,15 +50,10 @@ grid = np.stack(
 coord = (grid * 5.5 + 0.8 * rng.randn(N, 3)).astype(np.float32)
 
 params = ffparams.invariant_params(13.0)
-on_tpu = jax.devices()[0].platform == "tpu"
 
 t0 = time.perf_counter()
 vals, vecs, res = matfree.lowest_modes_matfree(
-    coord, params, K_MODES,
-    degree=64, n_outer=8,
-    # the Pallas kernel needs a real TPU; the XLA fallback runs anywhere
-    use_pallas=on_tpu,
-)
+    coord, params, K_MODES, degree=64, n_outer=8)
 vals = np.asarray(vals)
 print(f"{K_MODES} lowest modes of the {3 * N}x{3 * N} operator in "
       f"{time.perf_counter() - t0:.2f}s (Hessian never materialized)")

@@ -2,13 +2,15 @@
 Mega-assembly ANM
 =================
 
-Large-system workflow: build the Hessian with the fused Pallas kernel,
-then either (a) extract only the lowest functional modes iteratively
+Large-system workflow: build the dense Hessian on the device (one
+jitted XLA assembly), then either (a) extract only the lowest
+functional modes iteratively
 (Cholesky shift-invert subspace iteration with analytic rigid-body
 deflation — O(k n^2) instead of O(n^3)), or (b) get all fluctuation
 observables from the regularized Cholesky covariance.  Beyond the
-dense regime entirely, see examples/matrix_free_modes.py.  On a multi-chip mesh, sharded_hessian builds the
-matrix row-sharded with shard_map.
+dense regime entirely, see examples/matrix_free_modes.py.  On a
+multi-device mesh, sharded_hessian builds the matrix row-sharded with
+shard_map.
 
 Run:  python examples/mega_assembly.py [n_residues]
 """
@@ -24,7 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from springcraft_tpu.ops import ffparams, modes, pallas_kernels, rigid
+from springcraft_tpu.ops import assembly, ffparams, modes, rigid
 
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 2048
 K_MODES = 20
@@ -43,15 +45,8 @@ coord = (grid * 5.5 + 0.8 * rng.randn(N, 3)).astype(np.float32)
 params = ffparams.invariant_params(13.0)
 
 t0 = time.perf_counter()
-if jax.devices()[0].platform != "cpu" and pallas_kernels.supports_params(
-    params
-):
-    hessian = pallas_kernels.hessian_pallas(coord, params)
-else:
-    from springcraft_tpu.ops import assembly
-
-    hessian = assembly.hessian_matrix(jnp.asarray(coord), params, jnp,
-                                      layout="xyz")
+hessian = jax.jit(lambda c: assembly.hessian_matrix(
+    c, params, jnp, dtype=jnp.float32, layout="xyz"))(jnp.asarray(coord))
 hessian.block_until_ready()
 print(f"Hessian {hessian.shape} built in "
       f"{time.perf_counter() - t0:.2f}s")

@@ -3,7 +3,7 @@ Normal-mode animation
 =====================
 
 Creates a multi-model PDB trajectory depicting the first non-trivial
-ANM mode (the TPU-native counterpart of the reference gallery script
+ANM mode (the device counterpart of the reference gallery script
 ``doc/examples/scripts/normal_mode.py``): load it in PyMOL / ChimeraX /
 VMD to watch the motion.
 

@@ -8,8 +8,8 @@ pseudo-inverse covariance.  The dense route materializes the
 beyond ~15k residues.  The matrix-free route solves
 ``pinv(H) @ rhs`` directly by deflated, block-Jacobi-preconditioned
 conjugate gradients on the implicit operator: rigid-body modes are
-projected out, each column gets its own step sizes, and up to 128
-right-hand sides ride one solve for free on TPU.
+projected out, each column gets its own step sizes, and many
+right-hand sides ride one batched solve.
 
 This example pokes a real structure with directed forces and scans
 candidate effector sites, then cross-checks against the dense model
@@ -23,12 +23,10 @@ from os.path import abspath, dirname, join
 
 sys.path.insert(0, dirname(dirname(abspath(__file__))))  # in-repo run
 
-# A 20-residue demo solves instantly on CPU; remote-TPU compiles of the
-# CG program would dominate (and the f64 cross-check needs x64).  At
-# real mega scale, drop these two lines and use f32 tolerances.
+# The float64 cross-check needs x64; at real mega scale drop this line
+# and use float32 tolerances.
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np
@@ -52,7 +50,7 @@ force[4, 2] = 5.0
 force[11, 0] = -3.0
 
 disp = anm.linear_response(force, matrix_free=True, tol=1e-8,
-                           use_pallas=False, dtype=np.float64)
+                           dtype=np.float64)
 dense = anm.linear_response(force)
 print(f"linear response: max |displacement| = "
       f"{np.max(np.linalg.norm(disp, axis=1)):.4f} A; "
@@ -63,7 +61,7 @@ print(f"linear response: max |displacement| = "
 sites = [0, 4, 9, 14, 19]
 rows, n_it, res = matfree.prs_rows_matfree(
     np.asarray(ca.coord, dtype=np.float64), params, sites,
-    tol=1e-9, use_pallas=False, dtype=np.float64)
+    tol=1e-9, dtype=np.float64)
 rows = np.asarray(rows)
 print(f"PRS rows for sites {sites}: {int(n_it)} CG iterations, "
       f"max rel residual {float(np.max(np.asarray(res))):.1e}")

@@ -30,13 +30,10 @@ from os.path import abspath, dirname
 
 sys.path.insert(0, dirname(dirname(abspath(__file__))))  # in-repo run
 
-# A dense-provable demo solves in seconds on CPU; remote-TPU compiles
-# of the CG program would dominate (and the tight tolerances need
-# x64).  At real mega scale, drop these two lines and use f32
-# tolerances (tol=1e-6).
+# The tight tolerances of this dense-provable demo need x64.  At real
+# mega scale, drop this line and use f32 tolerances (tol=1e-6).
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
@@ -81,7 +78,7 @@ vals, vecs = (np.asarray(a) for a in anm.eigen())
 modes = (vals[6:6 + K_DEFLATE], vecs[6:6 + K_DEFLATE])
 
 params = ffparams.invariant_params(CUTOFF)
-opts = dict(tol=1e-8, use_pallas=False, block=64, dtype=jnp.float64)
+opts = dict(tol=1e-8, block=64, dtype=jnp.float64)
 
 
 def report(name, est, sem, true):

@@ -1,11 +1,11 @@
 """
-springcraft_tpu — a TPU-native elastic-network-model framework.
+springcraft_tpu — an elastic-network-model framework for accelerators.
 
 Built on JAX/XLA/Pallas, providing the full capability surface of the
 reference *springcraft* package (GNM/ANM elastic network models, the
-complete force-field family, and the normal-mode-analysis toolkit) with a
-TPU-first architecture: dense masked interaction assembly, batched XLA
-eigensolves, vmap-able ensemble pipelines and mesh-sharded multi-chip
+complete force-field family, and the normal-mode-analysis toolkit) with an
+accelerator-first architecture: dense masked interaction assembly, batched
+XLA eigensolves, vmap-able ensemble pipelines and mesh-sharded multi-device
 execution.
 """
 

@@ -1,10 +1,10 @@
 // Spatial cell-list neighbor search producing a boolean adjacency matrix.
 //
-// TPU-native equivalent of the native neighbor search the reference
+// Native equivalent of the neighbor search the reference
 // delegates to biotite.structure.CellList (used at reference
 // interaction.py:155-159).  This is the *host-side* path, used when a
 // sparse/host adjacency is explicitly requested (use_cell_list=True on the
-// numpy backend); the TPU compute path instead uses a dense tiled distance
+// numpy backend); the device compute path instead uses a dense tiled distance
 // mask (see springcraft_tpu/ops).
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libcell_list.so cell_list.cpp
@@ -198,7 +198,7 @@ int64_t neighbor_pairs(const double* coords, int64_t n, double cutoff,
 // This is the hot kernel of the f64 Rayleigh-Ritz refinement
 // (ops/modes.py) — O(pairs * k) instead of the O(n^2 * k) dense panel
 // stream, and the only float64 compute path that scales to the
-// matrix-free regime (TPUs have no native f64).
+// matrix-free regime on the host.
 void enm_hv_pairs(const double* coords, int64_t n,
                   const int64_t* pi, const int64_t* pj, const double* g,
                   int64_t npairs, const double* v, int64_t k, double* out) {

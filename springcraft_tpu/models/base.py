@@ -187,7 +187,7 @@ class ElasticNetworkModel:
         """Resolve a ``modes=`` deflation-subspace argument for the
         stochastic matrix-free surfaces: an integer ``k`` runs
         :meth:`lowest_modes(k, matrix_free=True) <lowest_modes>` (with
-        solver options forwarded — only ``tile``/``use_pallas`` unless
+        solver options forwarded — only ``tile``/``sparse`` unless
         `forward_all`, the rest belong to the downstream CG) and guards
         the returned mode residuals against ``mode_residual_tol``
         (popped from `options`, default 1e-2): a spuriously small
@@ -221,7 +221,7 @@ class ElasticNetworkModel:
         if isinstance(modes, (int, np.integer)):
             fwd = (dict(options) if forward_all else
                    {k: v for k, v in options.items()
-                    if k in ("tile", "use_pallas")})
+                    if k in ("tile", "sparse")})
             vals, vecs, res = self.lowest_modes(
                 int(modes), matrix_free=True, **fwd)
             res = np.asarray(res)
@@ -253,7 +253,7 @@ class ElasticNetworkModel:
         deflated CG (``ops.matfree.dcc_rows_matfree[_gnm]``).
 
         With ``norm=True`` and `msf` omitted, the normalizer is
-        estimated in place (VERDICT r4 #5): ``modes=<k | (values,
+        estimated in place: ``modes=<k | (values,
         vectors)>`` (optionally ``probes=``) runs the unbiased
         stochastic all-mode MSF first — one extra batched CG solve.
         Error propagation: the estimate's per-atom standard error

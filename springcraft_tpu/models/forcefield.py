@@ -8,7 +8,7 @@ API-compatible with the reference force-field layer
 families and named parameterizations.  In addition, every built-in force
 field exposes :meth:`ForceField.to_params`, which lowers it to a dense
 :class:`~springcraft_tpu.ops.ffparams.FFParams` pytree consumed by the
-jit-compiled TPU assembly path; custom user subclasses (without
+jit-compiled device assembly path; custom user subclasses (without
 ``to_params``) automatically fall back to the host path.
 """
 
@@ -364,7 +364,7 @@ class TabulatedForceField(ForceField):
         self._inter_chain = _as_type_table(inter_chain, n_bins)
 
         # Per-atom metadata for both the dense matrix and the compact
-        # TPU representation
+        # device representation
         bad = [aa for aa in dict.fromkeys(atoms.res_name)
                if aa not in AA_TO_INDEX]
         if bad:

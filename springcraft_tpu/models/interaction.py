@@ -11,7 +11,7 @@ Two execution paths:
   lowered to an :class:`FFParams` pytree and the matrix is assembled with
   dense masked algebra (:mod:`springcraft_tpu.ops.assembly`) — on JAX
   when x64 is active, otherwise through the NumPy backend with identical
-  code.  This is the TPU-native path; it is jit/vmap-compatible and needs
+  code.  This is the device path; it is jit/vmap-compatible and needs
   no neighbor list.
 * **host** (automatic fallback for custom ``ForceField`` subclasses):
   adjacency is built from the cutoff (optionally via the native cell

@@ -1,26 +1,26 @@
 """
 Dense Kirchhoff / Hessian assembly as pure array functions.
 
-TPU-first re-design of reference ``interaction.py:14-111``:
+Accelerator-first re-design of reference ``interaction.py:14-111``:
 
 * The reference builds a sparse pair list (``np.where`` over an adjacency
   matrix, ``interaction.py:177-178``) and scatters per-pair values.  Here
   the interaction matrices are assembled with *dense masked algebra* over
   the full (tiled) pairwise plane: static shapes, no scatter, fully
-  jit/vmap-compatible, and MXU/VPU friendly.
+  jit/vmap-compatible, and fusable by XLA.
 * Two Hessian layouts are supported:
   - ``"atom"``  — ``[x1, y1, z1, ..., xn, yn, zn]`` (reference layout,
     ``interaction.py:80-81``), used for parity.
   - ``"xyz"``   — ``[x1..xn, y1..yn, z1..zn]``: nine contiguous
-    ``(n, n)`` component planes.  This is the TPU-native layout — each
-    plane is a clean tile target for Pallas and XLA, and the two layouts
+    ``(n, n)`` component planes.  This is the device layout — each
+    plane is a contiguous block, and the two layouts
     are related by a permutation similarity (identical eigenvalues).
 * ``hessian_rows`` computes a row-block of the Hessian without
   materializing the full ``(n, n, 3, 3)`` tensor, enabling blocked /
   sharded assembly for large systems.
 
 All functions take an array-module argument ``xp`` (``jax.numpy`` or
-``numpy``) so the float64 parity backend and the TPU backend share one
+``numpy``) so the float64 parity backend and the device backend share one
 implementation.
 """
 
@@ -103,7 +103,7 @@ def _hessian_blocks(coord, params, xp, dtype):
     g = -k / safe_sq
     # Explicit broadcast product, NOT einsum: under jit an einsum (even
     # contraction-free) lowers to dot_general at DEFAULT precision,
-    # which rounds f32 operands through bf16 on TPU (~0.4% error).
+    # which may round f32 operands to TF32 on a GPU (~1e-3 error).
     off = (g[:, :, None, None] * disp[:, :, :, None]
            * disp[:, :, None, :])
     return off
@@ -121,7 +121,7 @@ def hessian_matrix(coord, params, xp, dtype=None, layout="atom"):
     ----------
     layout : {"atom", "xyz"}
         ``"atom"`` interleaves components per atom (reference layout);
-        ``"xyz"`` groups by component (TPU-native plane layout).
+        ``"xyz"`` groups by component (device plane layout).
     """
     off = _hessian_blocks(coord, params, xp, dtype)
     n = off.shape[0]

@@ -4,8 +4,8 @@ Force fields as parameter pytrees for dense, jit-able evaluation.
 The reference framework expresses force fields as Python classes with a
 polymorphic ``force_constant(atom_i, atom_j, sq_distance)`` hot call over
 *sparse pair lists* (reference ``forcefield.py:67-94``,
-``interaction.py:49``).  That design is CPU-idiomatic; on TPU we evaluate
-force constants as a *dense masked matrix* over the full pairwise
+``interaction.py:49``).  That design is CPU-idiomatic; on the device we
+evaluate force constants as a *dense masked matrix* over the full pairwise
 squared-distance matrix, with static shapes and no gather/scatter of
 ragged pair lists.  A single evaluation function covers all force-field
 families, keyed by a small static ``kind`` tag, so the assembly stays
@@ -24,7 +24,7 @@ Families (semantics match the reference):
 * ``table_compact``  — memory-light tabulated form storing only
   ``(20, 20, bins)`` type tables plus per-atom type/chain/bond info;
   force constants are produced by gathers on the fly.  This is the
-  scalable TPU representation (no O(N^2 * bins) table).
+  scalable device representation (no O(N^2 * bins) table).
 
 A :class:`PatchOverlay` applies artificial contact switching
 (``PatchedForceField``, reference ``forcefield.py:117-261``) as dense
@@ -32,7 +32,7 @@ masks on top of any base family.
 
 All evaluation functions are written against an array-module argument
 ``xp`` (``jax.numpy`` or ``numpy``) so that the float64 NumPy parity
-backend and the JAX TPU backend share one implementation.
+backend and the JAX device backend share one implementation.
 """
 
 from __future__ import annotations
@@ -167,7 +167,7 @@ def table_compact_params(type_idx, chain_code, bonded_next,
                          bonded_table, intra_table, inter_table, edges):
     """
     Compact tabulated force field: O(n) per-atom metadata plus
-    ``(20, 20, bins)`` type tables — the scalable TPU representation.
+    ``(20, 20, bins)`` type tables — the scalable device representation.
     """
     intra_table = np.asarray(intra_table)
     n_bins = intra_table.shape[-1]
@@ -358,9 +358,9 @@ def pairwise_sq_distance(coord, xp):
     """
     disp = coord[:, None, :] - coord[None, :, :]
     # Elementwise multiply + reduce, NOT einsum: an einsum contraction
-    # lowers to dot_general, which on TPU defaults to bf16 passes and
-    # corrupts f32 distances (~0.4%) — enough to flip cutoff/bin
-    # decisions and visibly bias covariance observables.
+    # lowers to dot_general, which at DEFAULT precision may run f32 in
+    # TF32 on a GPU and corrupt distances (~1e-3) — enough to flip
+    # cutoff/bin decisions and visibly bias covariance observables.
     sq_dist = xp.sum(disp * disp, axis=-1)
     return disp, sq_dist
 
@@ -430,7 +430,7 @@ def _base_constants(sq_dist, params, xp):
 
 def _compact_constants(sq_dist, params, xp):
     """Tabulated constants from (20, 20, bins) type tables via gathers —
-    the TPU-native analogue of reference ``forcefield.py:475-533``."""
+    the device analogue of reference ``forcefield.py:475-533``."""
     t = xp.asarray(params.type_idx)
     ti = t[:, None]
     tj = t[None, :]
@@ -461,7 +461,7 @@ def force_constant_matrix(sq_dist, params, xp, dtype=None):
     Dense masked force-constant matrix ``k[i, j]`` (zero on the diagonal
     and outside the interaction set).
 
-    This is the TPU-idiomatic replacement for the sparse
+    This is the device-idiomatic replacement for the sparse
     ``force_field.force_constant(pairs...)`` call at reference
     ``interaction.py:49,95``.
     """

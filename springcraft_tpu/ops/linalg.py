@@ -12,7 +12,7 @@ eigendecomposition and an eigenvalue threshold that reproduces NumPy's
     cutoff = rcond * max|lambda|
     pinv   = U diag(1/lambda where |lambda| > cutoff else 0) U^T
 
-Because float64 on TPU/JAX requires x64 mode, a NumPy/LAPACK fallback is
+Because float64 in JAX requires x64 mode, a NumPy/LAPACK fallback is
 used automatically when a float64 result is requested while JAX runs in
 32-bit mode (see ``utils.config.resolve_backend``), preserving numerical
 parity in all configurations.

@@ -2,11 +2,10 @@
 Matrix-free ENM operators: ``H @ X`` without materializing the Hessian.
 
 The dense pipelines materialize the ``(3n, 3n)`` Hessian — fine up to
-the mega-assembly regime (~10k residues, 3.8 GB f32 at 30k dims on one
-v5e), impossible beyond it (20k residues -> 14.4 GB, 100k residues ->
-360 GB).  The reference has no answer at all at this scale: its dense
-``np.linalg.eigh`` path (reference ``nma.py:61``) is O(n^3) time *and*
-O(n^2) memory.
+the mega-assembly regime (a 30k-dim float32 Hessian is 3.6 GB),
+impossible far beyond it (100k residues -> 360 GB).  The reference has
+no answer at all at this scale: its dense ``np.linalg.eigh`` path
+(reference ``nma.py:61``) is O(n^3) time *and* O(n^2) memory.
 
 This module keeps the operator implicit.  An ANM Hessian-vector product
 needs only the coordinates and the force-field rule:
@@ -14,16 +13,14 @@ needs only the coordinates and the force-field rule:
     y_i^a = sum_j g_ij d^a_ij d^b_ij x_j^b  -  (sum_j g_ij d^a_ij d^b_ij) x_i^b
 
 with ``d_ij = r_i - r_j`` and ``g_ij = -k_ij / |d_ij|^2`` — evaluated
-tile-by-tile, O(tile * n) live memory, all contractions on the MXU.
-Two implementations:
+tile-by-tile, O(tile * n) live memory.  Two implementations:
 
-* :func:`hessian_apply` — row-blocked XLA (``lax.map``); runs anywhere,
-  reference implementation for tests and the per-shard body of the
-  multi-chip path.
-* :func:`hessian_apply_pallas` — fused Pallas kernel: one grid cell
-  computes the nine ``(T, T)`` component planes of a (row-tile,
-  col-tile) block *in VMEM* and immediately contracts them with the
-  ``X`` column block — the planes never touch HBM.
+* :func:`hessian_apply` — row-blocked XLA (``lax.map``) over the dense
+  pair grid; runs anywhere, reference implementation for tests and the
+  per-shard body of the multi-chip path.
+* :func:`hessian_apply_pallas_sparse` — a Pallas kernel (Triton route)
+  over Morton-sorted tiles that visits only the tile pairs within the
+  cutoff: O(n * neighbours) instead of O(n^2).
 
 On top sits :func:`lowest_modes_matfree`: Chebyshev-filtered subspace
 iteration (Zhou & Saad style) with the rigid-body null space shifted
@@ -31,12 +28,11 @@ into the damped band — the ``k`` lowest non-trivial modes of systems
 whose Hessian cannot be stored.  All stages are matmuls / QR on an
 ``(m, p)`` block; nothing O(n^2) is ever resident.
 
-Supported force-field families match the Pallas assembly kernels:
-``invariant``, ``hinsen``, ``pfenm``, ``table_compact`` — the families
-whose parameters are O(n).  Patch overlays (``PatchedForceField``)
-ride on top as a sparse O(P) rank correction
-(:func:`overlay_apply_hessian` / :func:`overlay_apply_kirchhoff`)
-applied after the base-family kernels.  ``table_pair`` fields are
+Supported force-field families: ``invariant``, ``hinsen``, ``pfenm``,
+``table_compact`` — the families whose parameters are O(n).  Patch
+overlays (``PatchedForceField``) ride on top as a sparse O(P) rank
+correction (:func:`overlay_apply_hessian` / :func:`overlay_apply_kirchhoff`)
+applied after the base-family operator.  ``table_pair`` fields are
 O(n^2)-parameterized by construction, so the dense path is the right
 tool there.
 """
@@ -49,18 +45,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from . import rigid
-from .pallas_kernels import (
-    _analytic_constants,
-    _mask_and_constants,
-    supports_params,
-)
+from ..utils import config
 
 __all__ = [
     "hessian_apply",
-    "hessian_apply_pallas",
     "hessian_apply_pallas_sparse",
     "kirchhoff_apply",
     "kirchhoff_apply_pallas_sparse",
@@ -69,6 +60,7 @@ __all__ = [
     "estimate_lambda_max",
     "hessian_degree_bound",
     "spatial_sort_permutation",
+    "supports_params",
     "tile_neighbor_lists",
     "lowest_modes_matfree",
     "lowest_modes_matfree_gnm",
@@ -91,12 +83,38 @@ __all__ = [
 ]
 
 _HIGHEST = jax.lax.Precision.HIGHEST
-#: Mosaic supports only the two extremes in-kernel (lax.Precision.HIGH
-#: fails to lower): exact 6-pass f32, or one bf16 pass.
-_PRECISIONS = {
-    "highest": jax.lax.Precision.HIGHEST,
-    "default": None,
-}
+
+#: Atoms per tile of the block-sparse apply (rows and columns alike).
+#: 16 is the smallest Triton dot operand and was the fastest tile on
+#: the card (see PERF.md)
+SPARSE_TILE = 16
+
+
+def supports_params(params):
+    """O(n)-parameter families the matrix-free operators handle.  Patch
+    overlays are supported via a sparse post-pass rank correction as
+    long as their masks are concrete — the affected pair set is
+    extracted host-side at trace time."""
+    from . import ffparams as _fp
+
+    return params.kind in ("invariant", "hinsen", "pfenm",
+                           "table_compact") \
+        and (not params.overlays or _fp.overlays_concrete(params))
+
+
+def _analytic_constants(kind, sq):
+    """Unmasked spring constants for the analytic families, written
+    with the operations every Pallas route lowers.  Semantics match the
+    reference (``forcefield.py:264-366``)."""
+    if kind == "invariant":
+        return jnp.ones_like(sq)
+    if kind == "hinsen":
+        dist = jnp.maximum(jnp.sqrt(sq), 2.9)
+        return jnp.where(dist < 4.0, dist * 8.6e2 - 2.39e3,
+                         (1.28e6) / (sq * sq * sq))
+    if kind == "pfenm":
+        return 1.0 / jnp.where(sq == 0, 1.0, sq)
+    raise NotImplementedError(kind)
 
 
 def _round_up(x, m):
@@ -379,173 +397,14 @@ def _kirchhoff_apply_base(coord, x, params, *, block=512,
 
 
 # ---------------------------------------------------------------------------
-# Fused Pallas apply
-# ---------------------------------------------------------------------------
-
-def _apply_kernel(params, n, n_tiles, tile, *refs):
-    """Grid cell (i, j): contract the nine component planes of block
-    (row-tile i, col-tile j) with the X column block, accumulating into
-    the output row block (resident in VMEM across the j sweep)."""
-    if params.kind == "table_compact":
-        (coord_row_ref, coord_col_ref, type_row_ref, type_col_ref,
-         chain_row_ref, chain_col_ref, bond_row_ref, bond_col_ref,
-         tables_ref, x_col_ref, x_row_ref) = refs[:11]
-        out_ref = refs[11]
-        dsum_ref = refs[12]
-    else:
-        coord_row_ref, coord_col_ref, x_col_ref, x_row_ref = refs[:4]
-        out_ref = refs[4]
-        dsum_ref = refs[5]
-
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    row0 = i * tile
-    col0 = j * tile
-
-    rows = coord_row_ref[:]  # (3, T)
-    cols = coord_col_ref[:]
-    dx = rows[0][:, None] - cols[0][None, :]
-    dy = rows[1][:, None] - cols[1][None, :]
-    dz = rows[2][:, None] - cols[2][None, :]
-    sq = dx * dx + dy * dy + dz * dz
-
-    if params.kind == "table_compact":
-        extra = (
-            type_row_ref[:], type_col_ref[:],
-            chain_row_ref[0], chain_col_ref[0],
-            bond_row_ref[0], bond_col_ref[0],
-            tables_ref[:],
-        )
-    else:
-        extra = None
-    k = _mask_and_constants(sq, row0, col0, n, params, extra)
-    g = -k / jnp.where(sq == 0, 1.0, sq)
-    disp = (dx, dy, dz)
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-        dsum_ref[:] = jnp.zeros_like(dsum_ref)
-
-    xc = x_col_ref[:]  # (3, T, K)
-    for a in range(3):
-        acc = out_ref[a]
-        for b in range(3):
-            plane = g * disp[a] * disp[b]               # (T, T)
-            acc = acc + jnp.dot(plane, xc[b],
-                                preferred_element_type=plane.dtype,
-                                precision=_HIGHEST)
-            dsum_ref[3 * a + b, :] += jnp.sum(plane, axis=1)
-        out_ref[a] = acc
-
-    @pl.when(j == n_tiles - 1)
-    def _():
-        xr = x_row_ref[:]
-        for a in range(3):
-            acc = out_ref[a]
-            for b in range(3):
-                acc = acc - dsum_ref[3 * a + b, :][:, None] * xr[b]
-            out_ref[a] = acc
-
-
-def hessian_apply_pallas(coord, x, params, tile=256, dtype=jnp.float32,
-                         interpret=None):
-    """
-    Fused matrix-free ``H @ x`` on TPU: the nine ``(tile, tile)``
-    component planes of each block are produced and consumed entirely in
-    VMEM — the Hessian never exists in HBM.
-
-    `x` is ``(3n, k)`` or ``(3n,)`` in xyz plane layout; ``k`` is padded
-    to the 128-lane width internally.  Patch overlays apply as a sparse
-    O(P * k) correction on top of the base-family kernel.
-    """
-    _check_params(params)
-    if params.overlays:
-        return (hessian_apply_pallas(coord, x, _strip(params),
-                                     tile=tile, dtype=dtype,
-                                     interpret=interpret)
-                + overlay_apply_hessian(coord, x, params, dtype=dtype))
-    if interpret is None:
-        # Compiled Mosaic kernels need a TPU; interpret elsewhere.
-        interpret = jax.default_backend() != "tpu"
-    coord = jnp.asarray(coord, dtype=dtype)
-    n = coord.shape[0]
-    xb, squeeze = _as_block_input(x, n, dtype)
-    k_vec = xb.shape[-1]
-    k_pad = _round_up(max(k_vec, 128), 128)
-
-    n_pad = _round_up(n, tile)
-    n_tiles = n_pad // tile
-
-    coord_t = jnp.zeros((3, n_pad), dtype).at[:, :n].set(coord.T)
-    x_p = jnp.zeros((3, n_pad, k_pad), dtype).at[:, :n, :k_vec].set(xb)
-
-    kernel = functools.partial(_apply_kernel, params, n, n_tiles, tile)
-
-    in_specs = [
-        pl.BlockSpec((3, tile), lambda i, j: (0, i),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((3, tile), lambda i, j: (0, j),
-                     memory_space=pltpu.VMEM),
-    ]
-    inputs = [coord_t, coord_t]
-
-    if params.kind == "table_compact":
-        from .pallas_kernels import _compact_device_inputs
-        onehot, chain, bonded, tables = _compact_device_inputs(
-            params, n, n_pad, dtype)
-        in_specs += [
-            pl.BlockSpec((tile, 32), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 32), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ]
-        inputs += [onehot, onehot, chain, chain, bonded, bonded, tables]
-
-    in_specs += [
-        pl.BlockSpec((3, tile, k_pad), lambda i, j: (0, j, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((3, tile, k_pad), lambda i, j: (0, i, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    inputs += [x_p, x_p]
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_tiles, n_tiles),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((3, tile, k_pad), lambda i, j: (0, i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((3, n_pad, k_pad), dtype),
-        scratch_shapes=[pltpu.VMEM((9, tile), dtype)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(*inputs)
-
-    y = out[:, :n, :k_vec].reshape(3 * n, k_vec)
-    return y[:, 0] if squeeze else y
-
-
-# ---------------------------------------------------------------------------
-# Block-sparse apply: spatial sort + tile neighbor lists + scalar-prefetch
-# kernel.  This is the TPU-native successor of the reference's CellList
-# (reference interaction.py:154-159): instead of per-atom neighbor
-# lists (gather/scatter-hostile), atoms are ordered spatially so each
-# 256-atom tile is compact, and the kernel's grid only *visits* tile
-# pairs whose bounding boxes are within the cutoff — O(n * neighbors)
-# compute instead of O(n^2), with the tile list driving the DMA
-# schedule through scalar-prefetched BlockSpec index maps.
+# Block-sparse apply: spatial sort + tile neighbour lists + one Pallas
+# kernel on the Triton route.  This is the successor of the reference's
+# CellList (reference interaction.py:154-159): instead of per-atom
+# neighbour lists, atoms are ordered along a Morton curve so that each
+# fixed-size tile is spatially compact, and each program of the kernel
+# walks only the column tiles whose bounding boxes lie within the cutoff
+# of its row tile — O(n * neighbours) work instead of the O(n^2) pair
+# grid of :func:`hessian_apply`.
 # ---------------------------------------------------------------------------
 
 
@@ -577,7 +436,7 @@ def spatial_sort_permutation(coord, cell=8.0):
     return np.argsort(key, kind="stable")
 
 
-def tile_neighbor_lists(coord, cutoff, tile=256):
+def tile_neighbor_lists(coord, cutoff, tile=SPARSE_TILE):
     """
     Tile-level neighbor lists: for each row tile, the column tiles whose
     axis-aligned bounding boxes are within `cutoff` — a conservative
@@ -587,10 +446,12 @@ def tile_neighbor_lists(coord, cutoff, tile=256):
 
     Returns
     -------
-    nbr : ndarray, shape=(n_tiles, max_nbrs), int32
-        Neighbor tile indices, rows padded with the row's own index.
+    nbr : ndarray, shape=(sum(counts),), int32
+        Neighbor tile indices of all row tiles, row after row (no
+        padding: a few row tiles that straddle a jump of the Morton
+        curve have many times the mean count).
     counts : ndarray, shape=(n_tiles,), int32
-        Number of valid entries per row.
+        Number of entries per row tile.
     """
     coord = np.asarray(coord, dtype=np.float64)
     n = coord.shape[0]
@@ -601,296 +462,208 @@ def tile_neighbor_lists(coord, cutoff, tile=256):
         blk = coord[t * tile:min((t + 1) * tile, n)]
         mins[t] = blk.min(axis=0)
         maxs[t] = blk.max(axis=0)
-    # AABB pair gaps per axis: max(0, min_i - max_j, min_j - max_i)
-    gap = np.maximum(
-        mins[:, None, :] - maxs[None, :, :],
-        mins[None, :, :] - maxs[:, None, :],
-    )
-    gap = np.maximum(gap, 0.0)
-    adj = np.sum(gap * gap, axis=-1) <= float(cutoff) ** 2
-    np.fill_diagonal(adj, True)
-    counts = adj.sum(axis=1).astype(np.int32)
-    max_nbrs = int(counts.max())
-    nbr = np.empty((n_tiles, max_nbrs), dtype=np.int32)
+    # AABB pair gaps per axis: max(0, min_i - max_j, min_j - max_i),
+    # one row tile at a time so memory stays O(n_tiles)
+    cut2 = float(cutoff) ** 2
+    rows = []
     for t in range(n_tiles):
-        idx = np.where(adj[t])[0]
-        nbr[t, :len(idx)] = idx
-        nbr[t, len(idx):] = t  # padding: self (compute is masked off)
-    return nbr, counts
+        gap = np.maximum(np.maximum(mins[t] - maxs, mins - maxs[t]), 0.0)
+        adj = np.sum(gap * gap, axis=-1) <= cut2
+        adj[t] = True
+        rows.append(np.nonzero(adj)[0].astype(np.int32))
+    counts = np.array([len(r) for r in rows], dtype=np.int32)
+    return np.concatenate(rows), counts
 
 
-def _mask_and_constants_ids(sq, row_ids, col_ids, n, params, extra):
-    """Masked spring constants for one tile pair, with validity/bonding
-    decided by *original* atom ids (``(T,)`` int32; padding slots carry
-    id >= n) — permutation-safe for spatially sorted layouts."""
-    from .pallas_kernels import _compact_tile_constants
+def _compact_tile_constants(sq, row_ids, col_ids, params, meta):
+    """Tabulated constants for one tile pair, gathered from the flat
+    ``(3, 20, 20, n_bins)`` table (intra-chain, inter-chain, bonded)
+    at ``((relation * 20 + type_i) * 20 + type_j) * n_bins + bin``."""
+    type_rows, type_cols, chain_rows, chain_cols, bonded_rows, \
+        bonded_cols, table_ref = meta
+    n_bins = params.n_bins
+    bins = jnp.zeros(sq.shape, jnp.int32)
+    if n_bins > 1:
+        # searchsorted(side='left'): the number of edges strictly below
+        for edge_sq in np.asarray(params.edges_sq, dtype=np.float32):
+            bins = bins + (sq > edge_sq).astype(jnp.int32)
+        bins = jnp.minimum(bins, n_bins - 1)
+    delta = col_ids[None, :] - row_ids[:, None]
+    bonded = (((delta == 1) & (bonded_rows[:, None] != 0))
+              | ((delta == -1) & (bonded_cols[None, :] != 0)))
+    relation = jnp.where(
+        bonded, 2, jnp.where(chain_rows[:, None] == chain_cols[None, :],
+                             0, 1))
+    pair_type = (relation * 20 + type_rows[:, None]) * 20 \
+        + type_cols[None, :]
+    return table_ref[pair_type * n_bins + bins]
 
-    shape = sq.shape
-    rid = jnp.broadcast_to(row_ids[:, None], shape)
-    cid = jnp.broadcast_to(col_ids[None, :], shape)
-    valid = (rid != cid) & (rid < n) & (cid < n)
-    if params.has_cutoff:
-        valid &= sq <= np.float32(params.cutoff_sq)
 
-    if params.kind == "table_compact":
-        # _compact_tile_constants uses rows/cols only for the bonded
-        # (i, i+1) test — original ids keep peptide bonds intact under
-        # spatial reordering.
-        k = _compact_tile_constants(sq, rid, cid, params, extra)
+def _compact_device_inputs(params, n, n_pad, dtype):
+    """Padded per-atom metadata of the compact tabulated family for the
+    sparse kernel — type indices, chain codes and bonded flags
+    ``(n_pad,)`` — and the flattened ``(3 * 20 * 20 * n_bins,)`` table
+    stack (intra, inter, bonded).  Chain padding is -1, never a real
+    chain code; padded atoms are masked by id anyway."""
+    type_idx, chain, bonded, intra, inter, bond = _pad_compact_meta(
+        params, n, n_pad)
+    table = jnp.stack([intra, inter, bond]).astype(dtype).reshape(-1)
+    return type_idx, chain, bonded, table
+
+
+#: Unique (a, b) component pairs of the symmetric 3x3 superelements
+_SYM_PAIRS = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
+
+
+def _sparse_kernel(params, n, tile, vec3, *refs):
+    """Program ``i``: row tile ``i`` of ``H @ X`` (``vec3``) or
+    ``K @ X``.  The program loads its own neighbour-tile list, loops
+    over those column tiles only, keeps the row block's sums in
+    registers, and writes the row block once — no state crosses
+    programs, so they run in any order.  The Hessian superelements are
+    symmetric, so six component planes serve all nine products."""
+    compact = params.kind == "table_compact"
+    (nbr_ref, starts_ref, counts_ref, cx_ref, cy_ref, cz_ref,
+     ids_ref) = refs[:7]
+    if compact:
+        type_ref, chain_ref, bonded_ref, table_ref = refs[7:11]
+        x_ref, out_ref = refs[11:13]
     else:
-        k = _analytic_constants(params.kind, sq)
-    return jnp.where(valid, k, 0.0)
+        x_ref, out_ref = refs[7:9]
 
+    i = pl.program_id(0)
+    start = starts_ref[i]
+    rows = pl.ds(i * tile, tile)
+    rx, ry, rz = cx_ref[rows], cy_ref[rows], cz_ref[rows]
+    rid = ids_ref[rows]
+    if compact:
+        row_meta = (type_ref[rows], chain_ref[rows], bonded_ref[rows])
 
-#: Max pairs per kernel launch: the two scalar-prefetch index arrays
-#: live in SMEM (~1 MB); 60k pairs = 2 x 240 KB leaves headroom.  The
-#: pair list is segmented at row-tile boundaries beyond this (5 calls
-#: at 1M atoms).
-_SEG_MAX_PAIRS = 60_000
-
-
-def _flatten_pairs(nbr, counts, n_tiles):
-    """Row-sorted flattened pair list from tile neighbor lists."""
-    nbr = np.asarray(nbr)
-    counts = np.asarray(counts)
-    if nbr.shape[0] != n_tiles:
-        raise ValueError(
-            f"nbr has {nbr.shape[0]} rows for {n_tiles} tiles — "
-            "rebuild with tile_neighbor_lists(coord, cutoff, tile)")
-    pair_rows = np.repeat(np.arange(n_tiles, dtype=np.int32),
-                          counts.astype(np.int64))
-    pair_cols = np.concatenate(
-        [nbr[t, :counts[t]] for t in range(n_tiles)]).astype(np.int32)
-    return pair_rows, pair_cols
-
-
-def _segment_pairs(pair_rows, pair_cols, max_pairs=None):
-    """Split the pair list at row-tile boundaries into segments of at
-    most `max_pairs` pairs.  Yields ``(base_tile, n_seg_tiles,
-    rows_local, cols)`` — every row tile appears in exactly one segment
-    (tile neighbor lists always include the diagonal), so segment
-    outputs concatenate to the full row range."""
-    if max_pairs is None:
-        max_pairs = _SEG_MAX_PAIRS
-    n_pairs = pair_rows.shape[0]
-    segments = []
-    start = 0
-    while start < n_pairs:
-        end = min(start + max_pairs, n_pairs)
-        if end < n_pairs:
-            # round down to the start of the row containing `end`
-            end = int(np.searchsorted(pair_rows, pair_rows[end],
-                                      side="left"))
-            if end <= start:
-                raise ValueError(
-                    f"a single row tile has more than {max_pairs} "
-                    "neighbor tiles — raise max_pairs or the tile size")
-        base = int(pair_rows[start])
-        n_seg_tiles = int(pair_rows[end - 1]) - base + 1
-        segments.append((base, n_seg_tiles,
-                         (pair_rows[start:end] - base).astype(np.int32),
-                         pair_cols[start:end]))
-        start = end
-    return segments
-
-
-
-def _launch_sparse_segments(kernel, coord_t, ids, compact_inputs, x_p,
-                            pair_rows, pair_cols, tile, k_pad, vec3,
-                            dtype, interpret):
-    """Shared segment loop of the block-sparse applies: per pair-list
-    segment, build the scalar-prefetch BlockSpecs (row maps offset by
-    the segment base, output blocks segment-local) and launch the
-    kernel.  ``vec3`` selects the Hessian ``(3, n, k)`` layout vs the
-    Kirchhoff ``(n, k)`` layout."""
-    outs = []
-    for base, n_seg_tiles, rows_local, cols in _segment_pairs(
-            pair_rows, pair_cols):
-
-        def row_map(p, rows_ref, cols_ref, base=base):
-            return (0, base + rows_ref[p])
-
-        def col_map(p, rows_ref, cols_ref):
-            return (0, cols_ref[p])
-
-        in_specs = [
-            pl.BlockSpec((3, tile), row_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tile), col_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), row_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), col_map, memory_space=pltpu.VMEM),
-        ]
-        inputs = [coord_t, coord_t, ids, ids]
-
-        if compact_inputs is not None:
-            onehot, chain, bonded, tables = compact_inputs
-
-            def row_map2(p, rows_ref, cols_ref, base=base):
-                return (base + rows_ref[p], 0)
-
-            def col_map2(p, rows_ref, cols_ref):
-                return (cols_ref[p], 0)
-
-            in_specs += [
-                pl.BlockSpec((tile, 32), row_map2,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, 32), col_map2,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile), row_map,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile), col_map,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile), row_map,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile), col_map,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ]
-            inputs += [onehot, onehot, chain, chain, bonded, bonded,
-                       tables]
-
-        if vec3:
-            def x_col_map(p, rows_ref, cols_ref):
-                return (0, cols_ref[p], 0)
-
-            def x_row_map(p, rows_ref, cols_ref, base=base):
-                return (0, base + rows_ref[p], 0)
-
-            def out_map(p, rows_ref, cols_ref):
-                return (0, rows_ref[p], 0)  # segment-local row block
-
-            x_block = (3, tile, k_pad)
-            out_shape = (3, n_seg_tiles * tile, k_pad)
-            scratch = pltpu.VMEM((9, tile), dtype)
+    def constants(cols):
+        dx = rx[:, None] - cx_ref[cols][None, :]
+        dy = ry[:, None] - cy_ref[cols][None, :]
+        dz = rz[:, None] - cz_ref[cols][None, :]
+        sq = dx * dx + dy * dy + dz * dz
+        cid = ids_ref[cols]
+        valid = ((rid[:, None] != cid[None, :]) & (rid < n)[:, None]
+                 & (cid < n)[None, :])
+        if params.has_cutoff:
+            valid &= sq <= np.float32(params.cutoff_sq)
+        if compact:
+            meta = (row_meta[0], type_ref[cols], row_meta[1],
+                    chain_ref[cols], row_meta[2], bonded_ref[cols],
+                    table_ref)
+            k = _compact_tile_constants(sq, rid, cid, params, meta)
         else:
-            def x_col_map(p, rows_ref, cols_ref):
-                return (cols_ref[p], 0)
+            k = _analytic_constants(params.kind, sq)
+        return jnp.where(valid, k, 0.0), sq, (dx, dy, dz)
 
-            def x_row_map(p, rows_ref, cols_ref, base=base):
-                return (base + rows_ref[p], 0)
+    k_cols = x_ref.shape[-1]
+    if vec3:
+        def body(j, carry):
+            acc, dsum = carry
+            cols = pl.ds(nbr_ref[start + j] * tile, tile)
+            k, sq, disp = constants(cols)
+            g = -k / jnp.where(sq == 0, 1.0, sq)
+            xc = [x_ref[b, cols, :] for b in range(3)]
+            acc, dsum = list(acc), list(dsum)
+            for p, (a, b) in enumerate(_SYM_PAIRS):
+                plane = g * disp[a] * disp[b]
+                acc[a] = acc[a] + jnp.dot(plane, xc[b], precision=_HIGHEST)
+                if a != b:
+                    acc[b] = acc[b] + jnp.dot(plane, xc[a],
+                                              precision=_HIGHEST)
+                dsum[p] = dsum[p] + jnp.sum(plane, axis=1)
+            return tuple(acc), tuple(dsum)
 
-            def out_map(p, rows_ref, cols_ref):
-                return (rows_ref[p], 0)  # segment-local row block
-
-            x_block = (tile, k_pad)
-            out_shape = (n_seg_tiles * tile, k_pad)
-            scratch = pltpu.VMEM((1, tile), dtype)
-
-        in_specs += [
-            pl.BlockSpec(x_block, x_col_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec(x_block, x_row_map, memory_space=pltpu.VMEM),
-        ]
-        inputs += [x_p, x_p]
-
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(int(rows_local.shape[0]),),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec(x_block, out_map,
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[scratch],
-        )
-        outs.append(pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct(out_shape, dtype),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary",),
-            ),
-            interpret=interpret,
-        )(jnp.asarray(rows_local), jnp.asarray(cols), *inputs))
-
-    if len(outs) == 1:
-        return outs[0]
-    return jnp.concatenate(outs, axis=1 if vec3 else 0)
-
-
-def _sparse_apply_kernel(params, n, tile, precision, rows_ref, cols_ref,
-                         *refs):
-    """Grid cell ``p``: one interacting (row-tile, col-tile) pair from
-    the flattened pair list (indices scalar-prefetched, sorted by row
-    tile so the output block stays VMEM-resident across its pairs).
-    Every cell does real work — no padding cells."""
-    if params.kind == "table_compact":
-        (coord_row_ref, coord_col_ref, ids_row_ref, ids_col_ref,
-         type_row_ref, type_col_ref, chain_row_ref, chain_col_ref,
-         bond_row_ref, bond_col_ref, tables_ref,
-         x_col_ref, x_row_ref) = refs[:13]
-        out_ref = refs[13]
-        dsum_ref = refs[14]
-    else:
-        (coord_row_ref, coord_col_ref, ids_row_ref, ids_col_ref,
-         x_col_ref, x_row_ref) = refs[:6]
-        out_ref = refs[6]
-        dsum_ref = refs[7]
-
-    p = pl.program_id(0)
-    n_pairs = pl.num_programs(0)
-    row = rows_ref[p]
-    prev_row = rows_ref[jnp.maximum(p - 1, 0)]
-    next_row = rows_ref[jnp.minimum(p + 1, n_pairs - 1)]
-    first = (p == 0) | (row != prev_row)
-    last = (p == n_pairs - 1) | (row != next_row)
-
-    @pl.when(first)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-        dsum_ref[:] = jnp.zeros_like(dsum_ref)
-
-    rows = coord_row_ref[:]
-    cols = coord_col_ref[:]
-    dx = rows[0][:, None] - cols[0][None, :]
-    dy = rows[1][:, None] - cols[1][None, :]
-    dz = rows[2][:, None] - cols[2][None, :]
-    sq = dx * dx + dy * dy + dz * dz
-
-    if params.kind == "table_compact":
-        extra = (
-            type_row_ref[:], type_col_ref[:],
-            chain_row_ref[0], chain_col_ref[0],
-            bond_row_ref[0], bond_col_ref[0],
-            tables_ref[:],
-        )
-    else:
-        extra = None
-    k = _mask_and_constants_ids(sq, ids_row_ref[0], ids_col_ref[0],
-                                n, params, extra)
-    g = -k / jnp.where(sq == 0, 1.0, sq)
-    disp = (dx, dy, dz)
-
-    xc = x_col_ref[:]
-    prec = _PRECISIONS[precision]
-    for a in range(3):
-        acc = out_ref[a]
-        for b in range(3):
-            plane = g * disp[a] * disp[b]
-            acc = acc + jnp.dot(plane, xc[b],
-                                preferred_element_type=plane.dtype,
-                                precision=prec)
-            dsum_ref[3 * a + b, :] += jnp.sum(plane, axis=1)
-        out_ref[a] = acc
-
-    @pl.when(last)
-    def _():
-        xr = x_row_ref[:]
+        zero_acc = jnp.zeros((tile, k_cols), x_ref.dtype)
+        zero_sum = jnp.zeros((tile,), x_ref.dtype)
+        acc, dsum = jax.lax.fori_loop(
+            0, counts_ref[i], body,
+            ((zero_acc,) * 3, (zero_sum,) * len(_SYM_PAIRS)))
+        xr = [x_ref[b, rows, :] for b in range(3)]
+        acc = list(acc)
+        for p, (a, b) in enumerate(_SYM_PAIRS):
+            acc[a] = acc[a] - dsum[p][:, None] * xr[b]
+            if a != b:
+                acc[b] = acc[b] - dsum[p][:, None] * xr[a]
         for a in range(3):
-            acc = out_ref[a]
-            for b in range(3):
-                acc = acc - dsum_ref[3 * a + b, :][:, None] * xr[b]
-            out_ref[a] = acc
+            out_ref[a, rows, :] = acc[a]
+    else:
+        def body(j, carry):
+            acc, deg = carry
+            cols = pl.ds(nbr_ref[start + j] * tile, tile)
+            k, _, _ = constants(cols)
+            acc = acc - jnp.dot(k, x_ref[cols, :], precision=_HIGHEST)
+            return acc, deg + jnp.sum(k, axis=1)
+
+        acc, deg = jax.lax.fori_loop(
+            0, counts_ref[i], body,
+            (jnp.zeros((tile, k_cols), x_ref.dtype),
+             jnp.zeros((tile,), x_ref.dtype)))
+        out_ref[rows, :] = acc + deg[:, None] * x_ref[rows, :]
+
+
+def _launch_sparse(params, coord, x_p, nbr, counts, orig_ids, tile, vec3,
+                   interpret):
+    """Pad the per-atom inputs to whole tiles and run
+    :func:`_sparse_kernel` with one program per row tile.  ``x_p`` is
+    already padded to ``(3, n_pad, k_pad)`` (``vec3``) or
+    ``(n_pad, k_pad)``."""
+    if tile < 16 or tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two >= 16, got {tile}")
+    n = coord.shape[0]
+    n_pad = _round_up(n, tile)
+    n_tiles = n_pad // tile
+    counts = jnp.asarray(counts, jnp.int32)
+    if counts.shape[0] != n_tiles:
+        raise ValueError(
+            f"counts has {counts.shape[0]} rows for {n_tiles} tiles — "
+            "rebuild with tile_neighbor_lists(coord, cutoff, tile)")
+    dtype = x_p.dtype
+    cpad = jnp.zeros((n_pad, 3), dtype).at[:n].set(coord)
+    if orig_ids is None:
+        orig_ids = jnp.arange(n, dtype=jnp.int32)
+    # Padding slots get id n, which masks them out of every pair
+    ids = jnp.full(n_pad, n, jnp.int32).at[:n].set(
+        jnp.asarray(orig_ids, jnp.int32))
+    starts = jnp.cumsum(counts, dtype=jnp.int32) - counts
+    inputs = [jnp.asarray(nbr, jnp.int32), starts, counts,
+              cpad[:, 0], cpad[:, 1], cpad[:, 2], ids]
+    if params.kind == "table_compact":
+        inputs += list(_compact_device_inputs(params, n, n_pad, dtype))
+    return pl.pallas_call(
+        functools.partial(_sparse_kernel, params, n, tile, vec3),
+        grid=(n_tiles,),
+        out_shape=jax.ShapeDtypeStruct(x_p.shape, dtype),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret,
+        name="sparse_hessian_apply" if vec3 else "sparse_kirchhoff_apply",
+    )(*inputs, x_p)
+
+
+def _vector_block_width(k):
+    # Triton blocks are powers of two, and a dot operand needs >= 16
+    return max(16, 1 << (int(k) - 1).bit_length())
 
 
 def hessian_apply_pallas_sparse(coord, x, params, nbr, counts,
-                                orig_ids=None, tile=256,
-                                dtype=jnp.float32, interpret=None,
-                                precision="highest"):
+                                orig_ids=None, tile=SPARSE_TILE,
+                                dtype=jnp.float32, interpret=False):
     """
-    Block-sparse matrix-free ``H @ x``: the kernel grid is the
-    *flattened pair list* of interacting tile pairs (from
-    :func:`tile_neighbor_lists`), with tile indices scalar-prefetched
-    into the BlockSpec index maps — compute and DMA are both
-    O(n * neighbor_tiles) with zero padding cells, the TPU-native
-    analogue of the reference's cell-list pair pruning.  `nbr` /
-    `counts` must be host-concrete (they size the grid).
+    Block-sparse matrix-free ``H @ x``: one Pallas program (Triton
+    route) per row tile walks that tile's neighbour-tile list (from
+    :func:`tile_neighbor_lists`), so work and memory traffic are both
+    O(n * neighbour tiles) — the GPU analogue of the reference's
+    cell-list pair pruning.  The lists are unpadded, so a jitted solver
+    that closes over them embeds only the tile pairs that exist.
+
+    The kernel is compiled for CUDA GPUs; elsewhere it runs only with
+    ``interpret=True`` (the Pallas interpreter, for tests).  All plane
+    contractions run at ``HIGHEST`` precision: float32 operands
+    in TF32 would put ~1e-3 relative noise on the operator, which the
+    soft modes cannot tolerate.
 
     Parameters
     ----------
@@ -901,14 +674,9 @@ def hessian_apply_pallas_sparse(coord, x, params, nbr, counts,
         Original atom index per (sorted) slot — keeps self-pair masking
         and ``table_compact`` peptide bonds exact under reordering.
         Defaults to ``arange(n)`` (unsorted layout).
-    precision : {"highest", "default"}
-        MXU precision of the nine plane contractions (Mosaic lowers
-        only the two extremes; ``lax.Precision.HIGH`` is unsupported
-        in-kernel).  ``"highest"`` (6-pass f32) is exact and the
-        production setting.  ``"default"`` (one bf16 pass) is
-        **measured unusable for mode extraction**: bf16 operator noise
-        (~4e-3 ||H||) swamps the soft modes — solves stall at ~0.2
-        relative residuals; operator experiments only.
+    tile : int
+        Atoms per tile, a power of two >= 16; must match the tile the
+        neighbour lists were built with.
     """
     _check_params(params)
     if params.overlays:
@@ -918,110 +686,25 @@ def hessian_apply_pallas_sparse(coord, x, params, nbr, counts,
         return (hessian_apply_pallas_sparse(
                     coord, x, _strip(params), nbr, counts,
                     orig_ids=orig_ids, tile=tile, dtype=dtype,
-                    interpret=interpret, precision=precision)
+                    interpret=interpret)
                 + overlay_apply_hessian(coord, x, params, dtype=dtype,
                                         pos=orig_ids))
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     coord = jnp.asarray(coord, dtype=dtype)
     n = coord.shape[0]
     xb, squeeze = _as_block_input(x, n, dtype)
     k_vec = xb.shape[-1]
-    k_pad = _round_up(max(k_vec, 128), 128)
-
+    k_pad = _vector_block_width(k_vec)
     n_pad = _round_up(n, tile)
-    n_tiles = n_pad // tile
-    # Flatten to a 1D pair list sorted by row tile (host-side: the grid
-    # size is the pair count) — every grid cell does real work, unlike a
-    # (n_tiles, max_nbrs) grid padded to the worst row.  Large lists are
-    # segmented at row boundaries: the prefetch arrays live in SMEM.
-    pair_rows, pair_cols = _flatten_pairs(nbr, counts, n_tiles)
-
-    coord_t = jnp.zeros((3, n_pad), dtype).at[:, :n].set(coord.T)
     x_p = jnp.zeros((3, n_pad, k_pad), dtype).at[:, :n, :k_vec].set(xb)
-    if orig_ids is None:
-        orig_ids = jnp.arange(n, dtype=jnp.int32)
-    # Padding slots get id = n -> masked everywhere
-    ids = jnp.full((1, n_pad), n, jnp.int32).at[0, :n].set(
-        jnp.asarray(orig_ids, jnp.int32))
-
-    kernel = functools.partial(_sparse_apply_kernel, params, n, tile,
-                               precision)
-
-    if params.kind == "table_compact":
-        from .pallas_kernels import _compact_device_inputs
-        compact_inputs = _compact_device_inputs(params, n, n_pad, dtype)
-    else:
-        compact_inputs = None
-
-    out = _launch_sparse_segments(
-        kernel, coord_t, ids, compact_inputs, x_p, pair_rows, pair_cols,
-        tile, k_pad, vec3=True, dtype=dtype, interpret=interpret)
+    out = _launch_sparse(params, coord, x_p, nbr, counts, orig_ids, tile,
+                         True, interpret)
     y = out[:, :n, :k_vec].reshape(3 * n, k_vec)
     return y[:, 0] if squeeze else y
 
 
-def _sparse_kirchhoff_kernel(params, n, tile, rows_ref, cols_ref, *refs):
-    """GNM variant of :func:`_sparse_apply_kernel`: one ``(T, T)``
-    force-constant plane per pair, ``y = -K_off @ x + deg * x``."""
-    if params.kind == "table_compact":
-        (coord_row_ref, coord_col_ref, ids_row_ref, ids_col_ref,
-         type_row_ref, type_col_ref, chain_row_ref, chain_col_ref,
-         bond_row_ref, bond_col_ref, tables_ref,
-         x_col_ref, x_row_ref) = refs[:13]
-        out_ref = refs[13]
-        dsum_ref = refs[14]
-    else:
-        (coord_row_ref, coord_col_ref, ids_row_ref, ids_col_ref,
-         x_col_ref, x_row_ref) = refs[:6]
-        out_ref = refs[6]
-        dsum_ref = refs[7]
-
-    p = pl.program_id(0)
-    n_pairs = pl.num_programs(0)
-    row = rows_ref[p]
-    prev_row = rows_ref[jnp.maximum(p - 1, 0)]
-    next_row = rows_ref[jnp.minimum(p + 1, n_pairs - 1)]
-    first = (p == 0) | (row != prev_row)
-    last = (p == n_pairs - 1) | (row != next_row)
-
-    @pl.when(first)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-        dsum_ref[:] = jnp.zeros_like(dsum_ref)
-
-    rows_c = coord_row_ref[:]
-    cols_c = coord_col_ref[:]
-    dx = rows_c[0][:, None] - cols_c[0][None, :]
-    dy = rows_c[1][:, None] - cols_c[1][None, :]
-    dz = rows_c[2][:, None] - cols_c[2][None, :]
-    sq = dx * dx + dy * dy + dz * dz
-
-    if params.kind == "table_compact":
-        extra = (
-            type_row_ref[:], type_col_ref[:],
-            chain_row_ref[0], chain_col_ref[0],
-            bond_row_ref[0], bond_col_ref[0],
-            tables_ref[:],
-        )
-    else:
-        extra = None
-    k = _mask_and_constants_ids(sq, ids_row_ref[0], ids_col_ref[0],
-                                n, params, extra)
-
-    out_ref[:] += -jnp.dot(k, x_col_ref[:],
-                           preferred_element_type=k.dtype,
-                           precision=_HIGHEST)
-    dsum_ref[0, :] += jnp.sum(k, axis=1)
-
-    @pl.when(last)
-    def _():
-        out_ref[:] += dsum_ref[0, :][:, None] * x_row_ref[:]
-
-
 def kirchhoff_apply_pallas_sparse(coord, x, params, nbr, counts,
-                                  orig_ids=None, tile=256,
-                                  dtype=jnp.float32, interpret=None):
+                                  orig_ids=None, tile=SPARSE_TILE,
+                                  dtype=jnp.float32, interpret=False):
     """
     Block-sparse matrix-free ``K @ x`` for the GNM Kirchhoff operator
     (see :func:`hessian_apply_pallas_sparse`; `x` is ``(n, k)`` or
@@ -1035,8 +718,6 @@ def kirchhoff_apply_pallas_sparse(coord, x, params, nbr, counts,
                     interpret=interpret)
                 + overlay_apply_kirchhoff(coord, x, params,
                                           dtype=dtype, pos=orig_ids))
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     coord = jnp.asarray(coord, dtype=dtype)
     n = coord.shape[0]
     x = jnp.asarray(x, dtype=dtype)
@@ -1044,30 +725,11 @@ def kirchhoff_apply_pallas_sparse(coord, x, params, nbr, counts,
     if squeeze:
         x = x[:, None]
     k_vec = x.shape[-1]
-    k_pad = _round_up(max(k_vec, 128), 128)
-
+    k_pad = _vector_block_width(k_vec)
     n_pad = _round_up(n, tile)
-    n_tiles = n_pad // tile
-    pair_rows, pair_cols = _flatten_pairs(nbr, counts, n_tiles)
-
-    coord_t = jnp.zeros((3, n_pad), dtype).at[:, :n].set(coord.T)
     x_p = jnp.zeros((n_pad, k_pad), dtype).at[:n, :k_vec].set(x)
-    if orig_ids is None:
-        orig_ids = jnp.arange(n, dtype=jnp.int32)
-    ids = jnp.full((1, n_pad), n, jnp.int32).at[0, :n].set(
-        jnp.asarray(orig_ids, jnp.int32))
-
-    kernel = functools.partial(_sparse_kirchhoff_kernel, params, n, tile)
-
-    if params.kind == "table_compact":
-        from .pallas_kernels import _compact_device_inputs
-        compact_inputs = _compact_device_inputs(params, n, n_pad, dtype)
-    else:
-        compact_inputs = None
-
-    out = _launch_sparse_segments(
-        kernel, coord_t, ids, compact_inputs, x_p, pair_rows, pair_cols,
-        tile, k_pad, vec3=False, dtype=dtype, interpret=interpret)
+    out = _launch_sparse(params, coord, x_p, nbr, counts, orig_ids, tile,
+                         False, interpret)
     y = out[:n, :k_vec]
     return y[:, 0] if squeeze else y
 
@@ -1322,12 +984,22 @@ def _sparse_setup(coord, params, masses, tile, dtype, concrete):
     return coord, params, masses, nbr, counts, perm
 
 
+def _oversample(k, oversample, sparse):
+    """Extra subspace vectors: ``max(k, 8)`` by default, widened on the
+    sparse path to fill the power-of-two vector block its kernel pads
+    to anyway (a larger buffer widens the wanted-vs-excluded eigenvalue
+    gap and speeds convergence)."""
+    if oversample is not None:
+        return int(oversample)
+    q = max(k, 8)
+    return _vector_block_width(k + q) - k if sparse else q
+
+
 def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
-                         degree=96, n_outer=10, tile=256,
-                         block=512, use_pallas=None, sparse=None,
+                         degree=96, n_outer=10, tile=SPARSE_TILE,
+                         block=512, sparse=None,
                          dtype=jnp.float32, lambda_max=None, seed=0,
                          matvec=None, tol=None,
-                         matvec_precision="highest",
                          checkpoint=None, retries=0):
     """
     The `k` lowest non-trivial ANM modes **without materializing the
@@ -1361,12 +1033,13 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
     n_outer : int
         Outer (filter + Rayleigh-Ritz) iterations.
     sparse : bool, optional
-        Use the block-sparse operator: atoms are Morton-sorted, tile
-        neighbor lists built host-side, and the kernel grid only visits
+        Use the block-sparse operator (:func:`hessian_apply_pallas_sparse`,
+        a CUDA GPU kernel): atoms are Morton-sorted, tile neighbor lists
+        built host-side, and each kernel program visits only its
         interacting tile pairs — O(n * neighbors) per apply.  Default:
-        on whenever the Pallas path is used, the family has a cutoff,
-        and `coord` is concrete (host-side sort).  Results are returned
-        in the original atom order.
+        :func:`springcraft_tpu.utils.config.use_sparse_apply` (by size
+        and dtype; needs a cutoff and concrete `coord`).  Results are
+        returned in the original atom order.
     lambda_max : float, optional
         Known spectral upper bound; skips the Gershgorin degree-bound
         pass (:func:`hessian_degree_bound`).
@@ -1379,19 +1052,14 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
         ``(3n, p)`` must return ``H @ x`` (e.g. the mesh-sharded
         :func:`springcraft_tpu.parallel.sharded_hessian_apply`).  Mass
         weighting still wraps it.
-    matvec_precision : {"highest"}
-        MXU precision of the sparse operator's contractions; only the
-        exact 6-pass setting is supported in-kernel (Mosaic cannot
-        lower ``lax.Precision.HIGH``, and one bf16 pass is measured
-        unusable for mode extraction).
     checkpoint : str or utils.elastic.LoopCheckpoint, optional
         Snapshot the outer-iteration state to this ``.npz`` path and
-        resume from an existing snapshot — elastic recovery for
-        hour-scale solves on a failable remote device (the snapshot
-        assumes an identical call; see :mod:`springcraft_tpu.utils.elastic`).
+        resume from an existing snapshot — recovery for hour-scale
+        solves (the snapshot assumes an identical call; see
+        :mod:`springcraft_tpu.utils.elastic`).
     retries : int
-        In-process retries per outer iteration on *device* failures
-        (transient relay faults); 0 disables the elastic wrapper.
+        In-process retries per outer iteration on *device* failures;
+        0 disables the elastic wrapper.
 
     Returns
     -------
@@ -1404,20 +1072,10 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
     coord = jnp.asarray(coord, dtype=dtype)
     n = coord.shape[0]
     m = 3 * n
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if oversample is None:
-        # The Pallas kernels pad the vector block to the 128-lane
-        # width, so extra subspace vectors are free compute there — a
-        # larger buffer widens the wanted-vs-excluded eigenvalue gap
-        # and speeds convergence.
-        q = (max(k, 8, 48 - k) if (use_pallas and matvec is None)
-             else max(k, 8))
-    else:
-        q = int(oversample)
     if sparse is None:
-        sparse = (use_pallas and params.has_cutoff and matvec is None
-                  and concrete)
+        sparse = (matvec is None and concrete
+                  and config.use_sparse_apply(n, dtype, params))
+    q = _oversample(k, oversample, sparse)
 
     if lambda_max is None:
         # Guaranteed upper bound (the filter requires b >= lambda_max;
@@ -1441,10 +1099,7 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
             hessian_apply_pallas_sparse, coord, params=params,
             nbr=jnp.asarray(nbr), counts=jnp.asarray(counts),
             orig_ids=jnp.asarray(perm, jnp.int32), tile=tile,
-            dtype=dtype, precision=matvec_precision)
-    elif use_pallas:
-        base = functools.partial(hessian_apply_pallas, coord,
-                                 params=params, tile=tile, dtype=dtype)
+            dtype=dtype)
     else:
         base = functools.partial(hessian_apply, coord, params=params,
                                  block=block, dtype=dtype)
@@ -1477,7 +1132,7 @@ def lowest_modes_matfree(coord, params, k, *, masses=None, oversample=None,
 
 def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
                              oversample=None, degree=96, n_outer=10,
-                             tile=256, block=512, use_pallas=None,
+                             tile=SPARSE_TILE, block=512,
                              sparse=None, dtype=jnp.float32,
                              lambda_max=None, seed=0, matvec=None,
                              tol=None, checkpoint=None, retries=0):
@@ -1494,20 +1149,10 @@ def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
     concrete = not isinstance(coord, jax.core.Tracer)
     coord = jnp.asarray(coord, dtype=dtype)
     n = coord.shape[0]
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if oversample is None:
-        # The Pallas kernels pad the vector block to the 128-lane
-        # width, so extra subspace vectors are free compute there — a
-        # larger buffer widens the wanted-vs-excluded eigenvalue gap
-        # and speeds convergence.
-        q = (max(k, 8, 48 - k) if (use_pallas and matvec is None)
-             else max(k, 8))
-    else:
-        q = int(oversample)
     if sparse is None:
-        sparse = (use_pallas and params.has_cutoff and matvec is None
-                  and concrete)
+        sparse = (matvec is None and concrete
+                  and config.use_sparse_apply(n, dtype, params))
+    q = _oversample(k, oversample, sparse)
 
     if lambda_max is None:
         # Identical block-row Gershgorin bound (the Hessian's 3x3
@@ -1531,8 +1176,6 @@ def lowest_modes_matfree_gnm(coord, params, k, *, masses=None,
             orig_ids=jnp.asarray(perm, jnp.int32), tile=tile,
             dtype=dtype)
     else:
-        # XLA row-blocked fallback (no dense-grid Pallas variant: the
-        # Kirchhoff product is one plane and XLA handles it well)
         base = functools.partial(kirchhoff_apply, coord, params=params,
                                  block=block, dtype=dtype)
 
@@ -1611,8 +1254,8 @@ def _hessian_diag_blocks_base(coord, params, *, block=512,
 
 
 def covariance_solve_matfree(coord, params, rhs, *, masses=None,
-                             tol=1e-6, max_iter=1000, tile=256,
-                             block=512, use_pallas=None, sparse=None,
+                             tol=1e-6, max_iter=1000, tile=SPARSE_TILE,
+                             block=512, sparse=None,
                              dtype=jnp.float32, matvec=None):
     """
     ``pinv(H) @ rhs`` without materializing the Hessian or its
@@ -1625,11 +1268,11 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None,
     sites) — at system sizes where the dense ``(3n, 3n)`` covariance
     cannot exist.  Like all analytic-null-space paths it requires a
     *connected* network (``utils.network.is_connected``); disconnected
-    systems have extra null modes outside the deflated basis.  The rigid-body null space is projected out of the
-    right-hand side, every matvec, and the preconditioner output, so
-    CG runs on the positive-definite complement; each column gets its
-    own step sizes (vectorized single-column CG, up to the 128-lane
-    block width for free on the Pallas paths).
+    systems have extra null modes outside the deflated basis.  The
+    rigid-body null space is projected out of the right-hand side,
+    every matvec, and the preconditioner output, so CG runs on the
+    positive-definite complement; each column gets its own step sizes
+    (vectorized single-column CG).
 
     Parameters
     ----------
@@ -1648,8 +1291,7 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None,
         ``pinv(H) @ rhs`` (null-space component removed, matching the
         reference's pseudo-inverse semantics).  NOTE: each call traces
         and compiles its own CG program (the operator closure is a jit
-        static) — batch right-hand sides into ONE call (columns up to
-        the 128-lane width are free on the Pallas paths) rather than
+        static) — batch right-hand sides into ONE call rather than
         looping.
     n_iter : int
         CG iterations taken.
@@ -1659,11 +1301,9 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None,
     concrete = not isinstance(coord, jax.core.Tracer)
     coord = jnp.asarray(coord, dtype=dtype)
     n = coord.shape[0]
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     if sparse is None:
-        sparse = (use_pallas and params.has_cutoff and matvec is None
-                  and concrete)
+        sparse = (matvec is None and concrete
+                  and config.use_sparse_apply(n, dtype, params))
 
     rhs = jnp.asarray(rhs, dtype=dtype)
     squeeze = rhs.ndim == 1
@@ -1698,9 +1338,6 @@ def covariance_solve_matfree(coord, params, rhs, *, masses=None,
         inv_blocks = inv_blocks[perm]
         cols = np.concatenate([a * n + perm for a in range(3)])
         rhs = rhs[cols]
-    elif use_pallas:
-        base = functools.partial(hessian_apply_pallas, coord,
-                                 params=params, tile=tile, dtype=dtype)
     else:
         base = functools.partial(hessian_apply, coord, params=params,
                                  block=block, dtype=dtype)
@@ -2214,13 +1851,12 @@ def msf_stochastic(coord, params, modes, *, probes=64, seed=0,
         Non-trivial modes in rows, ``(k,)`` / ``(k, 3n)`` — the
         deflation subspace (``lowest_modes_matfree`` output).
     probes : int
-        Rademacher probe columns (one batched CG solve; columns to the
-        128-lane width are free on the Pallas paths).
+        Rademacher probe columns (one batched CG solve).
     layout : {"xyz", "atom"}
         Eigenvector component layout.
     options
         Forwarded to :func:`covariance_solve_matfree` (`tol`,
-        `max_iter`, `use_pallas`, `block`, ...).
+        `max_iter`, `sparse`, `block`, ...).
 
     Returns
     -------
@@ -2305,8 +1941,8 @@ def effector_sensor_stochastic(coord, params, prs_diag, *, probes=64,
     solve (:func:`covariance_solve_matfree`) over ``2 * probes``
     Rademacher columns estimates BOTH full-atom profiles with
     ``~sqrt(2 / probes)`` relative standard error, independent of
-    system size.  The probe columns ride the TPU lane dimension the
-    same way the site solves do (columns to 128 are free).
+    system size.  The probe columns are batched the same way the site
+    solves are.
 
     This complements the two existing mega-scale routes: exact
     all-mode values at selected *sites* (:func:`effector_sensor_
@@ -2357,7 +1993,7 @@ def effector_sensor_stochastic(coord, params, prs_diag, *, probes=64,
         `modes` eigenvector component layout.
     options
         Forwarded to :func:`covariance_solve_matfree` (`tol`,
-        `max_iter`, `use_pallas`, `block`, ...).
+        `max_iter`, `sparse`, `block`, ...).
 
     Returns
     -------
@@ -2568,8 +2204,8 @@ def _deflated_pcg_gnm(op, t, inv_diag, rhs, n, *, tol, max_iter):
 
 
 def covariance_solve_matfree_gnm(coord, params, rhs, *, masses=None,
-                                 tol=1e-6, max_iter=1000, tile=256,
-                                 block=512, use_pallas=None,
+                                 tol=1e-6, max_iter=1000,
+                                 tile=SPARSE_TILE, block=512,
                                  sparse=None, dtype=jnp.float32,
                                  precond=True):
     """
@@ -2586,10 +2222,8 @@ def covariance_solve_matfree_gnm(coord, params, rhs, *, masses=None,
     concrete = not isinstance(coord, jax.core.Tracer)
     coord = jnp.asarray(coord, dtype=dtype)
     n = coord.shape[0]
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     if sparse is None:
-        sparse = use_pallas and params.has_cutoff and concrete
+        sparse = concrete and config.use_sparse_apply(n, dtype, params)
 
     rhs = jnp.asarray(rhs, dtype=dtype)
     squeeze = rhs.ndim == 1

@@ -1,12 +1,11 @@
 """
 Host-side sparse pair lists and float64 pair-list operator applies.
 
-TPUs have no native float64, so every f64-certified quantity (the
-Rayleigh-Ritz eigenvalue refinement behind the <=1e-6 rtol accuracy
-clause, golden-parity checks at scale) runs on host.  The original host
-path streamed *dense* Hessian row panels (O(n^2) work — 51 s at 30k
-dims, and unusable in the matrix-free regime); this module keeps the
-operator sparse end to end:
+Every f64-certified quantity (the Rayleigh-Ritz eigenvalue refinement
+behind the <=1e-6 rtol accuracy clause, golden-parity checks at scale)
+runs on host in float64.  Streaming *dense* Hessian row panels costs
+O(n^2) work and is unusable in the matrix-free regime; this module
+keeps the operator sparse end to end:
 
 * :func:`neighbor_pairs` — O(n + pairs) cell-list pair enumeration
   (native C++ ``_native/cell_list.cpp::neighbor_pairs``, scipy cKDTree

@@ -3,10 +3,10 @@ Analytic null-space handling: rigid-body modes and fast pseudo-inverse.
 
 The reference obtains the ENM covariance as
 ``np.linalg.pinv(hessian, hermitian=True, rcond=1e-6)`` — an O(n^3)
-eigendecomposition (reference ``anm.py:135``, ``gnm.py:128``).  On TPU,
-``eigh`` runs at a small fraction of peak while Cholesky factorization
-is matmul-dominated and fast.  For a *connected* elastic network the
-null space is known analytically:
+eigendecomposition (reference ``anm.py:135``, ``gnm.py:128``).  A
+Cholesky factorization costs a fraction of a symmetric
+eigendecomposition.  For a *connected* elastic network the null space
+is known analytically:
 
 * ANM: the six rigid-body modes (three translations, three rotations
   about the centroid);
@@ -18,8 +18,7 @@ With an orthonormal null basis ``T`` and any ``sigma > 0``,
 
 because ``H`` and ``T T^t`` act on orthogonal complements.  The
 regularized matrix is positive definite, so the inverse comes from a
-Cholesky solve — 10-25x faster than ``eigh`` on TPU for batched
-workloads.  This path yields every covariance-derived observable (MSF,
+Cholesky solve.  This path yields every covariance-derived observable (MSF,
 B-factors, DCC, PRS, linear response); only mode frequencies/shapes
 still need the eigensolve.
 
@@ -40,11 +39,7 @@ __all__ = [
     "rigid_modes_anm",
     "null_mode_gnm",
     "covariance_cholesky",
-    "covariance_cholesky_direct",
-    "covariance_cholesky_from_planes",
     "covariance_plane_traces",
-    "covariance_plane_traces_direct",
-    "covariance_plane_traces_from_planes",
     "pinv_diagonal",
 ]
 
@@ -120,8 +115,7 @@ def _regularize_equilibrated(matrix, t, sigma, pad_to=None):
     ``T @ T^t``, and ``sqrt(sigma) S`` folds into T's rows before the
     matmul — so the only O(m^2) traffic is one read of `matrix` and one
     write of the result (the naive form costs two extra full passes plus
-    a materialized ``(m, m)`` ``T T^t``; measured ~10.7 ms of the 45 ms
-    (128, 900) fluctuation chunk before this fusion).
+    a materialized ``(m, m)`` ``T T^t``).
 
     Returns ``(reg, scale, sigma)`` with ``scale`` shaped ``(..., m)``
     and ``sigma`` shaped ``(..., 1, 1)``.
@@ -130,7 +124,7 @@ def _regularize_equilibrated(matrix, t, sigma, pad_to=None):
     (exact: the padding block decouples) in the SAME fused pass — the
     pad/iota-mask fuses into the matmul epilogue, where a separate
     ``jnp.pad`` + ``.at[diag].set`` inside the factor costs an extra
-    O(m^2) read+write (~3.2 ms at (128, 900 -> 1024) f32 on v5e).
+    O(m^2) read+write.
     ``scale`` is returned UNPADDED either way.
     """
     m = matrix.shape[-1]
@@ -163,197 +157,8 @@ def _regularize_equilibrated(matrix, t, sigma, pad_to=None):
     return reg, scale, sigma
 
 
-def _regularize_equilibrated_planes(planes, n, t, sigma, masses=None,
-                                    tr=None, interpret=None):
-    """Semantic twin of :func:`_regularize_equilibrated` (with
-    ``pad_to=padded_size(3 n)``) that starts from the nine RAW assembly
-    component planes (``pallas_kernels.hessian_pallas_ensemble(...,
-    raw_planes=True)``) instead of the concatenated Hessian, and emits
-    ``reg`` through the fused stitch/scale Pallas kernel — one aligned
-    read of the planes, one aligned write, no lane-misaligned nine-way
-    concatenation and no separate pad/rank-6 passes.
-
-    Mass weighting folds into the equilibration diagonal: with
-    ``M' = W H W`` the scaled product is ``S M' S = (S W) H (W S)``, so
-    the kernel's row/column vector is ``scale * w`` while the returned
-    ``scale`` (used to un-scale the inverse factor downstream) matches
-    the concatenated path on ``M'`` exactly.
-
-    ``t`` must already be the mass-adjusted null basis
-    (:func:`rigid_modes_anm` with the same ``masses``).
-    """
-    from . import pallas_kernels, pallas_linalg
-
-    m = 3 * n
-    mp = pallas_linalg.padded_size(m)
-    dtype = planes[0].dtype
-    batch = planes[0].shape[0]
-    t = jnp.asarray(t, dtype=dtype)
-
-    diag_m = jnp.concatenate(
-        [jnp.diagonal(planes[4 * a], axis1=-2, axis2=-1)[..., :n]
-         for a in range(3)], axis=-1)            # (B, 3n), xyz order
-    if masses is not None:
-        # mass-WEIGHTED Hessian convention, M' = W H W with
-        # W = diag(1 / sqrt(m)) (matching parallel.pipeline._mass_weight
-        # and the reference's mass handling)
-        w_xyz = jnp.tile(
-            1.0 / jnp.sqrt(jnp.asarray(masses, dtype)), 3)
-        diag_m = diag_m * (w_xyz * w_xyz)[None]
-    if sigma is None:
-        sigma = jnp.mean(diag_m, axis=-1)[..., None, None]
-    else:
-        sigma = jnp.asarray(sigma, dtype=dtype)
-        sigma = sigma[..., None, None] if sigma.ndim else sigma[None, None]
-    tn2 = jnp.sum(t * t, axis=-1)
-    scale = jax.lax.rsqrt(diag_m + sigma[..., 0] * tn2)
-    ts = t * (scale * jnp.sqrt(sigma[..., 0]))[..., None]   # (B, m, 6)
-    scale_h = scale if masses is None else scale * w_xyz[None]
-
-    if tr is None:
-        plan = pallas_kernels.fused_prep_plan(
-            n, planes[0].shape[-1], mp, dtype.itemsize)
-        if plan is None:
-            raise ValueError(
-                f"no fused-prep row tile fits VMEM at n={n} "
-                f"(planes {planes[0].shape}) — use the concatenated "
-                f"path")
-        tr, truncate = plan
-        if truncate:
-            planes = [p[:, :n, :n] for p in planes]
-    n_rows = -(-mp // tr) * tr
-    rows_aux = jnp.zeros((batch, n_rows, 8), dtype)
-    rows_aux = rows_aux.at[:, :m, 0].set(scale_h)
-    rows_aux = rows_aux.at[:, :m, 1:7].set(ts)
-    cols_aux = jnp.zeros((batch, 8, mp), dtype)
-    cols_aux = cols_aux.at[:, 0, :m].set(scale_h)
-    cols_aux = cols_aux.at[:, 1:7, :m].set(jnp.swapaxes(ts, -1, -2))
-    reg = pallas_kernels.regularize_stitch_pallas(
-        planes, n, rows_aux, cols_aux, mp, tr, interpret=interpret)
-    return reg, scale, sigma
-
-
-def _hessian_diag_xyz_batched(coords, params, dtype):
-    """``(B, 3n)`` diagonal of the xyz-layout ANM Hessian straight from
-    coordinates — the only quantity the assembly-fused prep needs ahead
-    of its kernel (the Jacobi scale is a GLOBAL function of the
-    diagonal through ``sigma``, so it cannot be computed inside a
-    row-banded pass).  One fused XLA reduction, O(n) output."""
-    from . import ffparams as fp
-
-    def one(c):
-        x, y, z = c[:, 0], c[:, 1], c[:, 2]
-        dx = x[:, None] - x[None, :]
-        dy = y[:, None] - y[None, :]
-        dz = z[:, None] - z[None, :]
-        sq = dx * dx + dy * dy + dz * dz
-        k = fp.force_constant_matrix(sq, params, jnp, dtype=dtype)
-        g = k / jnp.where(sq == 0, 1.0, sq)
-        return jnp.concatenate([
-            jnp.sum(g * dx * dx, axis=1),
-            jnp.sum(g * dy * dy, axis=1),
-            jnp.sum(g * dz * dz, axis=1),
-        ])
-
-    return jax.vmap(one)(coords)
-
-
-def _regularize_equilibrated_direct(coords, params, t, sigma,
-                                    masses=None, tr=None,
-                                    interpret=None):
-    """Semantic twin of :func:`_regularize_equilibrated_planes` that
-    starts from the COORDINATES: the pair planes are recomputed inside
-    the stitch kernel (:func:`.pallas_kernels.assembly_stitch_pallas`)
-    and never materialize in HBM — the assembly kernel and its plane
-    round-trip (one write + one read of ~9 n^2 floats per conformer)
-    drop out of the pipeline entirely.  Analytic families without
-    overlays only; the equilibration diagonal comes from a cheap fused
-    XLA reduction (:func:`_hessian_diag_xyz_batched`), so ``scale`` /
-    ``sigma`` match the planes path to f32 summation order."""
-    from . import pallas_kernels, pallas_linalg
-
-    coords = jnp.asarray(coords)
-    dtype = coords.dtype
-    batch, n = coords.shape[0], coords.shape[1]
-    m = 3 * n
-    mp = pallas_linalg.padded_size(m)
-    t = jnp.asarray(t, dtype=dtype)
-
-    diag_m = _hessian_diag_xyz_batched(coords, params, dtype)
-    if masses is not None:
-        w_xyz = jnp.tile(
-            1.0 / jnp.sqrt(jnp.asarray(masses, dtype)), 3)
-        diag_m = diag_m * (w_xyz * w_xyz)[None]
-    if sigma is None:
-        sigma = jnp.mean(diag_m, axis=-1)[..., None, None]
-    else:
-        sigma = jnp.asarray(sigma, dtype=dtype)
-        sigma = sigma[..., None, None] if sigma.ndim else sigma[None, None]
-    tn2 = jnp.sum(t * t, axis=-1)
-    scale = jax.lax.rsqrt(diag_m + sigma[..., 0] * tn2)
-    ts = t * (scale * jnp.sqrt(sigma[..., 0]))[..., None]   # (B, m, 6)
-    scale_h = scale if masses is None else scale * w_xyz[None]
-
-    if tr is None:
-        tr = pallas_kernels.assembly_prep_plan(n, mp, dtype.itemsize)
-        if tr is None:
-            raise ValueError(
-                f"no assembly-prep row tile fits VMEM at n={n} — use "
-                f"the planes or concatenated path")
-    n_rows = -(-mp // tr) * tr
-    # Lane layout (see pallas_kernels._assembly_stitch_kernel): ts at
-    # [0:6] with the scale vectors at complementary positions (rows 6 /
-    # cols 7) so the kernel's rank-6 MXU dot over lanes [0:8] contracts
-    # the scale cross terms against zeros.
-    rows_aux = jnp.zeros((batch, n_rows, 16), dtype)
-    rows_aux = rows_aux.at[:, :m, 0:6].set(ts)
-    rows_aux = rows_aux.at[:, :m, 6].set(scale_h)
-    # per-output-row atom coordinates (row a*n + p -> atom p)
-    rows_aux = rows_aux.at[:, :m, 8:11].set(jnp.tile(coords, (1, 3, 1)))
-    cols_aux = jnp.zeros((batch, 8, mp), dtype)
-    cols_aux = cols_aux.at[:, 0:6, :m].set(jnp.swapaxes(ts, -1, -2))
-    cols_aux = cols_aux.at[:, 7, :m].set(scale_h)
-    reg = pallas_kernels.assembly_stitch_pallas(
-        jnp.swapaxes(coords, 1, 2), params, rows_aux, cols_aux, n, mp,
-        tr, interpret=interpret)
-    return reg, scale, sigma
-
-
-def covariance_plane_traces_direct(coords, params, null_basis,
-                                   sigma=None, masses=None,
-                                   interpret=None):
-    """:func:`covariance_plane_traces` (blocked engine) computed
-    straight from coordinates via the assembly-fused prep — the
-    fastest batched fluctuation path for the analytic families (see
-    :func:`_regularize_equilibrated_direct`)."""
-    coords = jnp.asarray(coords)
-    n = coords.shape[1]
-    t = jnp.asarray(null_basis, dtype=coords.dtype)
-    reg, scale, sigma = _regularize_equilibrated_direct(
-        coords, params, t, sigma, masses=masses, interpret=interpret)
-    parts = _w_parts_from_reg_blocked(reg, scale, 3 * n, interpret)
-    return _plane_traces_from_w_parts(parts, t, sigma, n)
-
-
-def covariance_cholesky_direct(coords, params, null_basis, sigma=None,
-                               masses=None, interpret=None):
-    """:func:`covariance_cholesky` (blocked engine) computed straight
-    from coordinates via the assembly-fused prep (see
-    :func:`covariance_plane_traces_direct`)."""
-    coords = jnp.asarray(coords)
-    n = coords.shape[1]
-    m = 3 * n
-    t = jnp.asarray(null_basis, dtype=coords.dtype)
-    reg, scale, sigma = _regularize_equilibrated_direct(
-        coords, params, t, sigma, masses=masses, interpret=interpret)
-    w = _w_from_reg_blocked(reg, scale, m, interpret)
-    inv = _gram_lower(w)[..., :m, :m]
-    return inv - jnp.matmul(t, jnp.swapaxes(t, -1, -2),
-                            precision='highest') / sigma
-
-
 def covariance_cholesky(matrix, null_basis, sigma=None, block_size=None,
-                        inverse="cho_solve", interpret=None):
+                        inverse="cho_solve"):
     """
     Pseudo-inverse of a PSD interaction matrix with known (orthonormal)
     null basis via a regularized Cholesky solve.
@@ -378,10 +183,9 @@ def covariance_cholesky(matrix, null_basis, sigma=None, block_size=None,
         ``O(m^2 + m * block_size)`` for mega-assemblies instead of
         holding a full dense identity.
     inverse : {"cho_solve", "blocked"}
-        Inverse engine.  ``"blocked"`` uses the Pallas panel-Cholesky
-        blocked inverse (:func:`ops.pallas_linalg.spd_inverse_blocked`)
-        — the fast path for *batched* ensemble covariance on TPU, where
-        XLA's sequential Cholesky dominates the pipeline.
+        Inverse engine: XLA Cholesky + ``cho_solve``, or the recursive
+        blocked inverse factor (:func:`ops.pallas_linalg.
+        spd_inverse_factor`) for *batched* ensemble covariance.
 
     Returns
     -------
@@ -407,7 +211,7 @@ def covariance_cholesky(matrix, null_basis, sigma=None, block_size=None,
         # Fold the equilibration un-scaling into the inverse Gram
         # factor's columns (see _w_from_reg_blocked) — saves full
         # elementwise passes over the (m, m) inverse.
-        w = _w_from_reg_blocked(reg, scale, m, interpret)
+        w = _w_from_reg_blocked(reg, scale, m)
         inv = _gram_lower(w)[..., :m, :m]
         return inv - jnp.matmul(t, jnp.swapaxes(t, -1, -2),
                                 precision='highest') / sigma
@@ -443,7 +247,7 @@ def covariance_cholesky(matrix, null_basis, sigma=None, block_size=None,
 
 
 def covariance_plane_traces(matrix, null_basis, sigma=None,
-                            inverse="cho_solve", interpret=None):
+                            inverse="cho_solve"):
     """
     Sum of the diagonal component-plane blocks of the pseudo-inverse of
     an xyz-layout ANM Hessian:
@@ -469,9 +273,8 @@ def covariance_plane_traces(matrix, null_basis, sigma=None,
     sigma : float, optional
         Null-space regularization weight (default: mean diagonal).
     inverse : {"cho_solve", "blocked"}
-        ``"blocked"`` routes through the Pallas panel-Cholesky inverse
-        factor (the fast batched TPU engine, float32); ``"cho_solve"``
-        uses XLA Cholesky + a triangular solve (any backend/dtype).
+        ``"blocked"`` routes through the recursive blocked inverse
+        factor; ``"cho_solve"`` uses XLA Cholesky + a triangular solve.
 
     Returns
     -------
@@ -497,7 +300,7 @@ def covariance_plane_traces(matrix, null_basis, sigma=None,
         # separate O(m^2) pad program.
         reg, scale, sigma = _regularize_equilibrated(
             matrix, t, sigma, pad_to=pallas_linalg.padded_size(m))
-        parts = _w_parts_from_reg_blocked(reg, scale, m, interpret)
+        parts = _w_parts_from_reg_blocked(reg, scale, m)
         return _plane_traces_from_w_parts(parts, t, sigma, n)
     elif inverse == "cho_solve":
         reg, scale, sigma = _regularize_equilibrated(matrix, t, sigma)
@@ -511,14 +314,14 @@ def covariance_plane_traces(matrix, null_basis, sigma=None,
     return _plane_traces_from_w(w, t, sigma, n)
 
 
-def _w_from_reg_blocked(reg, scale, m, interpret):
+def _w_from_reg_blocked(reg, scale, m):
     """Unscaled inverse factor ``W`` (with ``pinv(reg_unscaled) =
-    W^T W``) from the identity-padded regularized matrix: the Pallas
-    blocked inverse factor with the equilibration un-scaling folded
-    into its columns (``S G^T G S = (G S)^T (G S)``)."""
+    W^T W``) from the identity-padded regularized matrix: the blocked
+    inverse factor with the equilibration un-scaling folded into its
+    columns (``S G^T G S = (G S)^T (G S)``)."""
     from . import pallas_linalg
 
-    g = pallas_linalg.spd_inverse_factor(reg, interpret=interpret)
+    g = pallas_linalg.spd_inverse_factor(reg)
     mp = g.shape[-1]
     if mp != m:
         scale_p = jnp.zeros(scale.shape[:-1] + (mp,), scale.dtype)
@@ -531,17 +334,15 @@ def _w_from_reg_blocked(reg, scale, m, interpret):
     return g * scale_p[..., None, :]
 
 
-def _w_parts_from_reg_blocked(reg, scale, m, interpret):
+def _w_parts_from_reg_blocked(reg, scale, m):
     """Top-split form of :func:`_w_from_reg_blocked`: the factor's
     top-level blocks ``(w11, w21, w22)`` (``W = [[w11, 0], [w21,
     w22]]``, column-scaled; ``w21 is None`` for single-leaf sizes) —
     feeding the plane-trace Grams blockwise skips the factor's final
-    materializing concat (~3.1 ms at the (128, 1024) f32 headline
-    shape, tools/exp_concat_cost.py)."""
+    materializing concat."""
     from . import pallas_linalg
 
-    g11, g21, g22 = pallas_linalg.spd_inverse_factor_parts(
-        reg, interpret=interpret)
+    g11, g21, g22 = pallas_linalg.spd_inverse_factor_parts(reg)
     h = g11.shape[-1]
     mp = h if g21 is None else h + g22.shape[-1]
     if mp != m:
@@ -629,12 +430,8 @@ def _gram_lower(w):
 
 
 def _plane_traces_from_w(w, t, sigma, n):
-    # traces = sum_a (W_a)^T W_a, one sliced Gram per plane: splitting
-    # the minor (lane) dim with a reshape instead forces a relayout
-    # copy of the whole factor — measured 7.2 vs 4.5 ms at
-    # (128, mp=1024) f32 on v5e (tools/exp_trace_variants.py; the
-    # merged-contraction and lane-padded forms lose for the same
-    # reason).  W is the column-scaled lower-triangular inverse factor,
+    # traces = sum_a (W_a)^T W_a, one sliced Gram per plane.  W is the
+    # column-scaled lower-triangular inverse factor,
     # so rows k < a*n of plane slice a are EXACTLY zero — each Gram
     # contracts only rows from the 128-aligned floor of a*n down
     # (bit-identical: the skipped terms are exact zeros; skips ~25% of
@@ -651,39 +448,6 @@ def _plane_traces_from_w(w, t, sigma, n):
     corr = jnp.einsum("...anp,...amp->...nm", tp, tp,
                       precision='highest')
     return traces - corr / sigma
-
-
-def covariance_plane_traces_from_planes(planes, n, null_basis,
-                                        sigma=None, masses=None,
-                                        interpret=None):
-    """:func:`covariance_plane_traces` (blocked engine) fed by the nine
-    RAW assembly component planes — the fused fast path of the batched
-    fluctuation pipeline: the regularize/equilibrate/pad prep reads the
-    planes directly (:func:`_regularize_equilibrated_planes`), skipping
-    the lane-misaligned concatenated Hessian entirely.  Optional
-    ``masses`` fold into the prep's scale vector (the planes stay
-    unweighted).
-    """
-    t = jnp.asarray(null_basis, dtype=planes[0].dtype)
-    reg, scale, sigma = _regularize_equilibrated_planes(
-        planes, n, t, sigma, masses=masses, interpret=interpret)
-    parts = _w_parts_from_reg_blocked(reg, scale, 3 * n, interpret)
-    return _plane_traces_from_w_parts(parts, t, sigma, n)
-
-
-def covariance_cholesky_from_planes(planes, n, null_basis, sigma=None,
-                                    masses=None, interpret=None):
-    """:func:`covariance_cholesky` (blocked engine) fed by the nine RAW
-    assembly component planes (see
-    :func:`covariance_plane_traces_from_planes`)."""
-    t = jnp.asarray(null_basis, dtype=planes[0].dtype)
-    m = 3 * n
-    reg, scale, sigma = _regularize_equilibrated_planes(
-        planes, n, t, sigma, masses=masses, interpret=interpret)
-    w = _w_from_reg_blocked(reg, scale, m, interpret)
-    inv = _gram_lower(w)[..., :m, :m]
-    return inv - jnp.matmul(t, jnp.swapaxes(t, -1, -2),
-                            precision='highest') / sigma
 
 
 def pinv_diagonal(matrix, null_basis, sigma=None, block_size=1024,

@@ -8,7 +8,7 @@ Design notes (green-field; the reference has no distributed layer):
   axis is sharded over the whole mesh via ``NamedSharding`` and the
   vmapped pipeline runs under ``jit`` — XLA keeps every solve local to
   its device; cross-device collectives appear only for ensemble
-  reductions (e.g. mean MSF), riding ICI.
+  reductions (e.g. mean MSF).
 * **Sharded Hessian assembly** uses ``shard_map`` over row blocks: each
   device holds the full ``(n, 3)`` coordinate array (tiny) and computes
   its block of Hessian rows with
@@ -26,10 +26,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older JAX
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops import assembly
 from . import pipeline
@@ -93,10 +90,9 @@ def sharded_ensemble_anm_fluctuations(coords, params, mesh, masses=None,
     (see :func:`sharded_ensemble_anm`).
 
     Defaults to the ``cho_solve`` covariance engine under GSPMD.
-    ``inverse="blocked"`` routes through ``shard_map`` instead — GSPMD
-    cannot partition the blocked engine's Pallas panel kernel over the
-    sharded batch axis, but manual SPMD keeps each device's kernel
-    local to its conformer shard."""
+    ``inverse="blocked"`` routes through ``shard_map`` instead, which
+    keeps each device's recursive factor local to its conformer
+    shard."""
     options.setdefault("inverse", "cho_solve")
     if options.get("inverse") == "blocked":
         def run(c):
@@ -115,7 +111,7 @@ def sharded_ensemble_anm_banded(coords, params, mesh, masses=None,
     conformer batch sharded over the whole mesh via ``shard_map`` —
     each device runs the two-stage banded solver (band reduction,
     bisection, factored inverse iteration) on its local shard; the
-    solver's batch-inside-lanes vectorization stays device-local."""
+    solver's batch vectorization stays device-local."""
     def run(c):
         return pipeline.ensemble_anm_banded(c, params, masses=masses,
                                             **options)
@@ -192,10 +188,9 @@ def sharded_hessian(coord, params, mesh, dtype=jnp.float32):
 def _matfree_shard_fn(mesh, params_key, n, k_vec, block, dtype):
     """shard_map program computing row shards of the matrix-free
     ``H @ x``, cached per (mesh, static force-field key, shapes) — the
-    parameter *arrays* flow through as jit arguments (remote TPU
-    compiles take minutes; rebuilding the jit wrapper per call would
-    recompile every time).  `params_key` carries only the static fields
-    (kind, cutoff, bin edges)."""
+    parameter *arrays* flow through as jit arguments (rebuilding the
+    jit wrapper per call would recompile every time).  `params_key`
+    carries only the static fields (kind, cutoff, bin edges)."""
     from ..ops import ffparams, matfree
 
     kind, cutoff_sq, edges_sq, n_bins = params_key

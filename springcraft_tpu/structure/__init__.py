@@ -1,6 +1,6 @@
 """
 Host-side structure layer: AtomArray container, PDB I/O, chemical info
-and neighbor search.  TPU-native replacement for the parts of *biotite*
+and neighbor search.  Replacement for the parts of *biotite*
 the reference framework depends on.
 """
 

@@ -14,8 +14,8 @@ Two backends:
 
 Both produce exactly the brute-force adjacency
 ``d^2(i, j) <= cutoff^2`` (self-contacts included; callers clear the
-diagonal), so results are bit-identical to the dense mask used on the TPU
-path.
+diagonal), so results are bit-identical to the dense mask used on the
+device path.
 """
 
 from __future__ import annotations

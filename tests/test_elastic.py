@@ -47,7 +47,7 @@ def test_retry_recovers_from_transient_failure():
     def flaky():
         calls["n"] += 1
         if calls["n"] == 1:
-            raise _FakeXlaRuntimeError("relay dropped")
+            raise _FakeXlaRuntimeError("connection reset")
         return 42
 
     out = elastic.retry_on_failure(
@@ -175,7 +175,7 @@ def small_cloud():
 
 def test_lowest_modes_checkpoint_matches_plain(small_cloud, tmp_path):
     params = ffparams.invariant_params(8.0)
-    kwargs = dict(k=4, degree=24, n_outer=4, use_pallas=False,
+    kwargs = dict(k=4, degree=24, n_outer=4,
                   sparse=False, seed=3)
     vals, vecs, res = matfree.lowest_modes_matfree(small_cloud, params,
                                                    **kwargs)
@@ -191,7 +191,7 @@ def test_lowest_modes_checkpoint_matches_plain(small_cloud, tmp_path):
 
 def test_lowest_modes_gnm_elastic_path(small_cloud, tmp_path):
     params = ffparams.invariant_params(8.0)
-    kwargs = dict(k=3, degree=24, n_outer=3, use_pallas=False,
+    kwargs = dict(k=3, degree=24, n_outer=3,
                   sparse=False, seed=5)
     vals, vecs, res = matfree.lowest_modes_matfree_gnm(
         small_cloud, params, **kwargs)

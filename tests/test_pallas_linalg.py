@@ -1,11 +1,8 @@
 """
-Batched blocked SPD inverse (`ops.pallas_linalg`): panel kernel
+Batched blocked SPD inverse (`ops.pallas_linalg`): leaf-panel
 correctness, blocked inverse vs `np.linalg.inv`, and equivalence of the
 `inverse="blocked"` covariance engine with the `cho_solve` path in
 `ops.rigid.covariance_cholesky` / the ensemble fluctuation pipelines.
-
-Kernels run in interpret mode on the CPU backend (compiled-Mosaic
-behavior is covered by `bench.py --smoke` on the real chip).
 """
 
 import numpy as np
@@ -28,46 +25,49 @@ def _random_coords(b, n, seed=0):
     return base[None] + 0.05 * rng.randn(b, n, 3).astype(np.float32)
 
 
+_TOL = {np.float32: 2e-5, np.float64: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("pb", [16, 64])
-def test_panel_cholesky_matches_numpy(pb):
-    d = _random_spd(5, pb, seed=1)
+def test_panel_cholesky_matches_numpy(pb, dtype):
+    d = _random_spd(5, pb, seed=1, dtype=dtype)
     l, w = pallas_linalg.panel_cholesky_batched(jnp.asarray(d))
     l, w = np.asarray(l), np.asarray(w)
-    ref = np.linalg.cholesky(d)
-    assert np.allclose(l, ref, atol=1e-5 * np.max(np.abs(ref)))
+    assert l.dtype == dtype and w.dtype == dtype
+    ref = np.linalg.cholesky(d.astype(np.float64))
+    assert np.allclose(l, ref, atol=_TOL[dtype] * np.max(np.abs(ref)))
     # W = L^-1
-    assert np.allclose(w @ ref, np.eye(pb)[None], atol=2e-5)
+    assert np.allclose(w @ ref, np.eye(pb)[None], atol=_TOL[dtype])
     # strict upper triangles are exactly zero
     iu = np.triu_indices(pb, k=1)
     assert np.all(l[:, iu[0], iu[1]] == 0)
     assert np.all(w[:, iu[0], iu[1]] == 0)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("pb", [16, 64])
-def test_panel_inverse_augmented_matches_numpy(pb):
-    d = _random_spd(5, pb, seed=4)
+def test_panel_inverse_augmented_matches_numpy(pb, dtype):
+    d = _random_spd(5, pb, seed=4, dtype=dtype)
     w = np.asarray(pallas_linalg.panel_inverse_batched(jnp.asarray(d)))
     ref = np.linalg.cholesky(d.astype(np.float64))
-    assert np.allclose(w @ ref, np.eye(pb)[None], atol=2e-5)
+    assert np.allclose(w @ ref, np.eye(pb)[None], atol=_TOL[dtype])
     iu = np.triu_indices(pb, k=1)
     assert np.all(w[:, iu[0], iu[1]] == 0)
 
 
 def test_panel_inverse_batch_padding():
     d = _random_spd(3, 16, seed=5)
-    w = np.asarray(pallas_linalg.panel_inverse_batched(
-        jnp.asarray(d), batch_chunk=8))
+    w = np.asarray(pallas_linalg.panel_inverse_batched(jnp.asarray(d)))
     ref = np.linalg.inv(np.linalg.cholesky(d.astype(np.float64)))
     assert w.shape == (3, 16, 16)
     assert np.allclose(w, ref, atol=2e-5)
 
 
 def test_panel_cholesky_batch_padding():
-    # batch not a multiple of the chunk: padded entries must not
-    # contaminate real results
+    # an odd batch: every member is factored on its own
     d = _random_spd(3, 16, seed=2)
-    l, w = pallas_linalg.panel_cholesky_batched(jnp.asarray(d),
-                                                batch_chunk=8)
+    l, w = pallas_linalg.panel_cholesky_batched(jnp.asarray(d))
     assert np.allclose(np.asarray(l), np.linalg.cholesky(d), atol=1e-5)
     assert l.shape == (3, 16, 16)
 
@@ -241,238 +241,11 @@ def test_ensemble_fluctuations_megabatch_chunked():
             coords, params, inverse="blocked", chunk=4)
 
 
-def test_fused_prep_planes_matches_concatenated():
-    """The fused regularize/stitch prep fed by raw assembly planes must
-    reproduce the concatenated-Hessian prep to f32 rounding (the rank-6
-    null-space term is exact-f32 broadcast fmas in the kernel vs a
-    HIGHEST bf16x6 matmul in the XLA path — one ULP apart), and the
-    planes-based covariance / trace engines must match the assembled
-    blocked engines."""
-    from springcraft_tpu.ops import pallas_kernels, rigid as rigid_mod
-    import jax
-
-    coords = jnp.asarray(_dense_coords(4, 37, seed=11))
-    n = coords.shape[1]
-    params = ffparams.invariant_params(7.0)
-
-    h = pallas_kernels.hessian_pallas_ensemble(coords, params,
-                                               dtype=jnp.float32)
-    planes = pallas_kernels.hessian_pallas_ensemble(
-        coords, params, dtype=jnp.float32, raw_planes=True)
-    assert len(planes) == 9
-    # raw planes reassemble to the concatenated Hessian exactly
-    hs = jnp.concatenate(
-        [jnp.concatenate([planes[3 * a + b][:, :n, :n]
-                          for b in range(3)], axis=2)
-         for a in range(3)], axis=1)
-    assert float(jnp.max(jnp.abs(hs - h))) == 0.0
-
-    bases = jax.vmap(
-        lambda c: rigid_mod.rigid_modes_anm(c, layout="xyz")
-    )(coords).astype(jnp.float32)
-
-    ref_reg, ref_scale, ref_sigma = rigid_mod._regularize_equilibrated(
-        h, bases, None, pad_to=pallas_linalg.padded_size(3 * n))
-    got_reg, got_scale, got_sigma = \
-        rigid_mod._regularize_equilibrated_planes(planes, n, bases, None)
-    assert float(jnp.max(jnp.abs(got_reg - ref_reg))) < 1e-6
-    assert float(jnp.max(jnp.abs(got_scale - ref_scale))) == 0.0
-    assert float(jnp.max(jnp.abs(got_sigma - ref_sigma))) == 0.0
-
-    ref_tr = rigid_mod.covariance_plane_traces(h, bases,
-                                               inverse="blocked")
-    got_tr = rigid_mod.covariance_plane_traces_from_planes(
-        planes, n, bases)
-    scale = float(jnp.max(jnp.abs(ref_tr)))
-    assert float(jnp.max(jnp.abs(got_tr - ref_tr))) / scale < 1e-5
-
-    ref_cov = rigid_mod.covariance_cholesky(h, bases, inverse="blocked")
-    got_cov = rigid_mod.covariance_cholesky_from_planes(planes, n, bases)
-    scale = float(jnp.max(jnp.abs(ref_cov)))
-    assert float(jnp.max(jnp.abs(got_cov - ref_cov))) / scale < 1e-5
-
-
-def test_fused_prep_planes_masses():
-    """Mass weights fold into the stitch kernel's scale vector:
-    planes stay unweighted, results match weighting the assembled
-    Hessian (different association order -> small f32 tolerance)."""
-    from springcraft_tpu.ops import pallas_kernels, rigid as rigid_mod
-    import jax
-
-    coords = jnp.asarray(_dense_coords(3, 29, seed=12))
-    n = coords.shape[1]
-    params = ffparams.invariant_params(7.0)
-    masses = jnp.asarray(np.linspace(1.0, 3.0, n).astype(np.float32))
-
-    h = pallas_kernels.hessian_pallas_ensemble(coords, params,
-                                               dtype=jnp.float32)
-    # mass-weighted Hessian convention: W = diag(1 / sqrt(m))
-    w_xyz = jnp.tile(1.0 / jnp.sqrt(masses), 3)
-    hw = h * w_xyz[None, :, None] * w_xyz[None, None, :]
-    planes = pallas_kernels.hessian_pallas_ensemble(
-        coords, params, dtype=jnp.float32, raw_planes=True)
-    bases = jax.vmap(
-        lambda c: rigid_mod.rigid_modes_anm(c, masses=masses,
-                                            layout="xyz")
-    )(coords).astype(jnp.float32)
-
-    ref = rigid_mod.covariance_plane_traces(hw, bases, inverse="blocked")
-    got = rigid_mod.covariance_plane_traces_from_planes(
-        planes, n, bases, masses=masses)
-    scale = float(jnp.max(jnp.abs(ref)))
-    assert float(jnp.max(jnp.abs(got - ref))) / scale < 5e-6
-
-
-def _dense_coords(b, n, seed):
-    # tighter spread than _random_coords: guarantees a connected
-    # network at cutoff 7 (a disconnected one has a >6-dim null space
-    # and the factor surfaces breakdown as NaN by design)
-    rng = np.random.RandomState(seed)
-    base = (rng.rand(n, 3) * 6.0).astype(np.float32)
-    return base[None] + 0.05 * rng.randn(b, n, 3).astype(np.float32)
-
-
-def test_fused_prep_pipeline_use_pallas():
-    """With use_pallas=True the blocked ensemble pipeline takes the
-    fused planes path (CPU: interpret mode) — observables must match
-    the XLA-assembled blocked pipeline."""
-    coords = _dense_coords(4, 30, seed=13)
-    params = ffparams.invariant_params(7.0)
-    for kwargs in ({}, {"with_covariance": False}):
-        ref = pipeline.ensemble_anm_fluctuations(
-            coords, params, inverse="blocked", use_pallas=False, **kwargs)
-        got = pipeline.ensemble_anm_fluctuations(
-            coords, params, inverse="blocked", use_pallas=True, **kwargs)
-        for key in ref:
-            scale = float(jnp.max(jnp.abs(ref[key]))) or 1.0
-            dev = float(jnp.max(jnp.abs(got[key] - ref[key]))) / scale
-            assert dev < 1e-4, (key, kwargs, dev)
-
-    # masses through the fused path
-    masses = jnp.asarray(np.linspace(0.8, 2.5, 30).astype(np.float32))
-    ref = pipeline.ensemble_anm_fluctuations(
-        coords, params, masses=masses, inverse="blocked",
-        use_pallas=False)
-    got = pipeline.ensemble_anm_fluctuations(
-        coords, params, masses=masses, inverse="blocked",
-        use_pallas=True)
-    for key in ref:
-        scale = float(jnp.max(jnp.abs(ref[key]))) or 1.0
-        assert float(jnp.max(jnp.abs(got[key] - ref[key]))) / scale < 2e-5
-
-
-@pytest.mark.parametrize("kind", ["invariant", "hinsen", "pfenm"])
-def test_assembly_fused_prep_matches_planes(kind):
-    """The assembly-fused prep (coordinates -> factor input in one
-    kernel) must reproduce the planes-based prep: identical reg up to
-    the f32 summation order of the XLA diagonal reduction vs the
-    kernel row sums, and matching traces/covariance downstream."""
-    from springcraft_tpu.ops import pallas_kernels, rigid as rigid_mod
-    import jax
-
-    coords = jnp.asarray(_dense_coords(3, 41, seed=17))
-    n = coords.shape[1]
-    if kind == "invariant":
-        params = ffparams.invariant_params(7.0)
-    elif kind == "hinsen":
-        params = ffparams.hinsen_params(7.0)
-    else:
-        params = ffparams.pfenm_params(7.0)
-
-    bases = jax.vmap(
-        lambda c: rigid_mod.rigid_modes_anm(c, layout="xyz")
-    )(coords).astype(jnp.float32)
-
-    planes = pallas_kernels.hessian_pallas_ensemble(
-        coords, params, dtype=jnp.float32, raw_planes=True)
-    ref_reg, ref_scale, ref_sigma = \
-        rigid_mod._regularize_equilibrated_planes(planes, n, bases, None)
-    got_reg, got_scale, got_sigma = \
-        rigid_mod._regularize_equilibrated_direct(coords, params, bases,
-                                                  None)
-    assert got_reg.shape == ref_reg.shape
-    assert float(jnp.max(jnp.abs(got_sigma - ref_sigma))) \
-        / float(jnp.max(jnp.abs(ref_sigma))) < 1e-6
-    assert float(jnp.max(jnp.abs(got_scale - ref_scale))) \
-        / float(jnp.max(jnp.abs(ref_scale))) < 1e-6
-    assert float(jnp.max(jnp.abs(got_reg - ref_reg))) < 1e-5
-
-    ref_tr = rigid_mod.covariance_plane_traces_from_planes(
-        planes, n, bases)
-    got_tr = rigid_mod.covariance_plane_traces_direct(
-        coords, params, bases)
-    scale = float(jnp.max(jnp.abs(ref_tr)))
-    assert float(jnp.max(jnp.abs(got_tr - ref_tr))) / scale < 1e-5
-
-    ref_cov = rigid_mod.covariance_cholesky_from_planes(planes, n, bases)
-    got_cov = rigid_mod.covariance_cholesky_direct(coords, params, bases)
-    scale = float(jnp.max(jnp.abs(ref_cov)))
-    assert float(jnp.max(jnp.abs(got_cov - ref_cov))) / scale < 1e-5
-
-
-def test_assembly_fused_prep_masses():
-    from springcraft_tpu.ops import rigid as rigid_mod
-    import jax
-
-    coords = jnp.asarray(_dense_coords(2, 33, seed=18))
-    n = coords.shape[1]
-    params = ffparams.invariant_params(7.0)
-    masses = jnp.asarray(np.linspace(1.0, 2.5, n).astype(np.float32))
-
-    from springcraft_tpu.ops import pallas_kernels
-
-    planes = pallas_kernels.hessian_pallas_ensemble(
-        coords, params, dtype=jnp.float32, raw_planes=True)
-    bases = jax.vmap(
-        lambda c: rigid_mod.rigid_modes_anm(c, masses=masses,
-                                            layout="xyz")
-    )(coords).astype(jnp.float32)
-
-    ref = rigid_mod.covariance_plane_traces_from_planes(
-        planes, n, bases, masses=masses)
-    got = rigid_mod.covariance_plane_traces_direct(
-        coords, params, bases, masses=masses)
-    scale = float(jnp.max(jnp.abs(ref)))
-    assert float(jnp.max(jnp.abs(got - ref))) / scale < 1e-5
-
-
-def test_assembly_fused_pipeline_matches_xla():
-    """With prep="direct" the blocked pipeline takes the assembly-fused
-    path for analytic families — observables must still match the
-    XLA-assembled blocked pipeline."""
-    from springcraft_tpu.parallel import pipeline as pl_mod
-
-    coords = _dense_coords(3, 35, seed=19)
-    params = ffparams.invariant_params(7.0)
-    assert pl_mod._fused_direct_applies(
-        jnp.asarray(coords), params, jnp.float32, True)
-    for kwargs in ({}, {"with_covariance": False}):
-        ref = pipeline.ensemble_anm_fluctuations(
-            coords, params, inverse="blocked", use_pallas=False, **kwargs)
-        got = pipeline.ensemble_anm_fluctuations(
-            coords, params, inverse="blocked", use_pallas=True,
-            prep="direct", **kwargs)
-        # prep= must also thread through the megabatch chunked program
-        chunked = pipeline.ensemble_anm_fluctuations(
-            coords, params, inverse="blocked", use_pallas=True,
-            prep="direct", chunk=1, **kwargs)
-        for key in got:
-            gscale = float(jnp.max(jnp.abs(got[key]))) or 1.0
-            assert (float(jnp.max(jnp.abs(chunked[key] - got[key])))
-                    / gscale < 1e-6)
-        for key in ref:
-            scale = float(jnp.max(jnp.abs(ref[key]))) or 1.0
-            dev = float(jnp.max(jnp.abs(got[key] - ref[key]))) / scale
-            assert dev < 1e-4, (key, kwargs, dev)
-
-
 # ---------------------------------------------------------------------------
 # Triangular zero-skipping (`_tri_split`-active) paths.  They only engage
-# at 128-aligned sub-blocks >= 256 — i.e. recursion sizes far above what
-# the interpret-mode end-to-end tests can afford on CPU (m=540 measured
-# ~4 min) — so the split arithmetic is covered here directly against the
-# dense contractions, plus one full-recursion run with the Pallas leaf
-# swapped for a NumPy leaf.
+# at 128-aligned sub-blocks >= 256, so the split arithmetic is covered
+# here directly against the dense contractions, plus one full-recursion
+# run with the leaf swapped for a NumPy leaf.
 
 
 def _tril_factor(b, m, seed, dtype=np.float32):
@@ -574,10 +347,9 @@ def test_plane_traces_row_ranges_match_dense():
 
 def test_recursion_tri_splits_numpy_leaf(monkeypatch):
     # Full recursion at mp=640 (two active _tri_split levels) with the
-    # Pallas leaf replaced by a NumPy Cholesky leaf: exercises the
-    # split/stitch arithmetic end-to-end without interpret-mode kernels.
-    def np_leaf(panels, interpret=None, batch_chunk=None,
-                shrink_block=None):
+    # leaf replaced by a NumPy Cholesky leaf: exercises the split/stitch
+    # arithmetic end-to-end independently of the XLA leaves.
+    def np_leaf(panels):
         p = np.asarray(panels).astype(np.float64)
         w = np.linalg.inv(np.linalg.cholesky(p))
         return jnp.asarray(np.tril(w).astype(np.asarray(panels).dtype))
@@ -599,25 +371,14 @@ def test_recursion_tri_splits_numpy_leaf(monkeypatch):
     assert rel < 1e-5
 
 
-def test_fused_prep_pipeline_tabulated(ca_1l2y):
-    """The tabulated (table_compact) family through the fused planes
-    path: its assembly tile comes from _ensemble_tile, the raw planes
-    carry a pad region, and the stitch plan may host-truncate them —
-    results must still match the XLA-assembled blocked pipeline."""
-    import springcraft_tpu as sc
-
-    ff = sc.TabulatedForceField.sd_enm(ca_1l2y)
-    params = ff.to_compact_params()
-    rng = np.random.RandomState(3)
-    coords = (ca_1l2y.coord[None]
-              + 0.05 * rng.randn(3, len(ca_1l2y), 3)).astype(np.float32)
-    ref = pipeline.ensemble_anm_fluctuations(
-        coords, params, inverse="blocked", use_pallas=False,
-        with_covariance=False)
-    got = pipeline.ensemble_anm_fluctuations(
-        coords, params, inverse="blocked", use_pallas=True,
-        with_covariance=False)
-    for key in ref:
-        scale = float(jnp.max(jnp.abs(ref[key]))) or 1.0
-        dev = float(jnp.max(jnp.abs(got[key] - ref[key]))) / scale
-        assert dev < 1e-4, (key, dev)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_recursion_tri_splits_xla_leaf(dtype):
+    # The same mp=640 recursion with the real XLA Cholesky leaves
+    m = 540
+    a = _random_spd(2, m, seed=29, dtype=dtype)
+    g = np.asarray(pallas_linalg.spd_inverse_factor(jnp.asarray(a)))
+    assert g.shape == (2, 640, 640) and g.dtype == dtype
+    inv = (g.transpose(0, 2, 1) @ g)[:, :m, :m]
+    ref = np.linalg.inv(a.astype(np.float64))
+    rel = np.abs(inv - ref).max() / np.abs(ref).max()
+    assert rel < (1e-5 if dtype == np.float32 else 1e-12)

@@ -156,36 +156,6 @@ def test_sharded_anm_pipeline():
                        atol=1e-9)
 
 
-def test_use_pallas_through_jitted_pipeline(ca_1l2y):
-    """use_pallas must work through the jitted pipelines (static FF
-    metadata keeps the kernel's cutoff/edges concrete under jit)."""
-    ff = sc.InvariantForceField(13.0)
-    out = anm_observables(
-        ca_1l2y.coord.astype(np.float32), ff.to_params(),
-        use_pallas=True,
-    )
-    ref = anm_observables(
-        ca_1l2y.coord.astype(np.float32), ff.to_params(),
-        use_pallas=False,
-    )
-    assert np.allclose(np.asarray(out["msf"]), np.asarray(ref["msf"]),
-                       rtol=1e-4, atol=1e-6)
-
-    # Tabulated compact family through the pallas path under jit
-    tab = sc.TabulatedForceField.sd_enm(ca_1l2y)
-    out_t = anm_observables(
-        ca_1l2y.coord.astype(np.float32), tab.to_compact_params(),
-        use_pallas=True,
-    )
-    ref_t = anm_observables(
-        ca_1l2y.coord.astype(np.float32), tab.to_compact_params(),
-        use_pallas=False,
-    )
-    assert np.allclose(np.asarray(out_t["eig_values"]),
-                       np.asarray(ref_t["eig_values"]),
-                       rtol=1e-3, atol=1e-3)
-
-
 def test_n_modes_validation(ca_1l2y):
     ff = sc.InvariantForceField(13.0)
     with pytest.raises(ValueError):

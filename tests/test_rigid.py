@@ -148,7 +148,7 @@ def test_covariance_plane_traces_matches_full(ca_1l2y):
     assert traces.shape == (n, n)
     assert np.allclose(traces, ref, atol=1e-8)
 
-    # Blocked (Pallas) engine: float32, interpret mode off-TPU
+    # Blocked inverse-factor engine, float32
     traces32 = np.asarray(
         rigid.covariance_plane_traces(
             jnp.asarray(h, jnp.float32),
